@@ -1,0 +1,141 @@
+"""K1: the IDX-DFS frontier masks, as a CUDA kernel and its plain version.
+
+One hop of Algorithm 4 over a fixed-width ``(C, k+1)`` int32 chunk of
+partial paths, all at one depth (DESIGN.md §9): gather each row's
+candidates from the light-weight index, drop those already on the row's
+prefix, and split the survivors into emit (the candidate is t) and
+continue.  The counterpart of ``repro``'s Pallas kernel
+``kernels/frontier_expand._frontier_kernel``; the CUDA source is
+``csrc/frontier.cu`` and says what bounds it on the card.
+
+Layout (the JAX package's, so both can be held against each other):
+
+* ``paths`` (C, k+1) int32: rows at one depth, PAD past it; whole PAD
+  rows are inert (no candidates, no counter contributions).
+* ``begin`` (n,) and ``end`` (n, k+1) int32 offsets, ``dst`` (mf,) int32
+  (``LightweightIndex.device_arrays``).  The kernel reads the budget
+  column ``b = k - depth - 1`` of ``end`` itself, so no per-hop column
+  copy is made.
+* ``meta`` (2,) int32 ``[depth, t]`` on the same device as the rest, so a
+  caller that holds the depth on the card (the resident deque) launches
+  without a host round trip.
+* Outputs: ``vnew``/``emit``/``cont`` (C, max_deg) int32 and the Fig.-6
+  counters (4,) int32 ``[edges, edges, invalid, 0]``.
+
+``frontier_masks`` launches the kernel for CUDA tensors and runs
+``frontier_masks_plain`` for CPU tensors; nothing routes a CUDA tensor
+to the plain version.  ``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+PAD = -1
+
+# kernel launches since process start (chip_smoke.py resets and reads it)
+launches: int = 0
+
+
+def frontier_masks_plain(paths: torch.Tensor, begin: torch.Tensor,
+                         end: torch.Tensor, dst: torch.Tensor,
+                         meta: torch.Tensor, *, max_deg: int
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """The frontier masks in plain PyTorch (any device): the semantics the
+    CUDA kernel is held to, written after ``repro``'s
+    ``ref.frontier_masks_ref``."""
+    C, k1 = paths.shape
+    mf = dst.shape[0]
+    depth = meta[0].long()
+    t = meta[1]
+    b = torch.clamp(k1 - 2 - depth, 0, k1 - 1)
+    last = paths.index_select(1, depth.view(1)).view(C)
+    valid = last != PAD
+    lastc = torch.where(valid, last, 0).long()
+    bsel = begin.index_select(0, lastc)
+    esel = end.index_select(0, lastc).index_select(1, b.view(1)).view(C)
+    cnt = torch.where(valid, esel - bsel, 0)
+    slot = torch.arange(max_deg, device=paths.device)[None, :]
+    in_range = slot < cnt[:, None]
+    pos = torch.clamp(bsel[:, None].long() + slot, 0, mf - 1)
+    vnew = dst[pos]
+    on_prefix = torch.arange(k1, device=paths.device) <= depth
+    dup = ((paths[:, :, None] == vnew[:, None, :])
+           & on_prefix[None, :, None]).any(dim=1)
+    is_t = vnew == t
+    emit = in_range & ~dup & is_t
+    cont = in_range & ~dup & ~is_t
+    alive = (emit | cont).any(dim=1)
+    dead = valid & ~alive
+    edges = cnt.sum()
+    invalid = (dup & in_range).sum() + dead.sum()
+    counters = torch.stack([edges, edges, invalid,
+                            torch.zeros_like(edges)]).to(torch.int32)
+    return (torch.where(emit | cont, vnew, PAD).to(torch.int32),
+            emit.to(torch.int32), cont.to(torch.int32), counters)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("frontier")
+    fn = lib.frontier_masks_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_args(paths: torch.Tensor, begin: torch.Tensor,
+                end: torch.Tensor, dst: torch.Tensor,
+                meta: torch.Tensor, max_deg: int) -> None:
+    dev = paths.device
+    for name, x in (("paths", paths), ("begin", begin), ("end", end),
+                    ("dst", dst), ("meta", meta)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, paths on {dev}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    C, k1 = paths.shape
+    if end.dim() != 2 or end.shape != (begin.shape[0], k1):
+        raise ValueError(f"end must be (n, k+1) = ({begin.shape[0]}, {k1}),"
+                         f" got {tuple(end.shape)}")
+    if meta.shape != (2,):
+        raise ValueError("meta must be (2,) = [depth, t]")
+    if dst.shape[0] < 1 or max_deg < 1:
+        raise ValueError("dst needs at least one element and max_deg >= 1")
+
+
+def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
+                   end: torch.Tensor, dst: torch.Tensor, meta: torch.Tensor,
+                   *, max_deg: int) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """One frontier hop: ``(vnew, emit, cont, counters)`` for a chunk.
+
+    CUDA tensors launch the kernel of ``csrc/frontier.cu`` on the current
+    stream (and raise if the launch fails); CPU tensors take
+    ``frontier_masks_plain``.
+    """
+    global launches
+    _check_args(paths, begin, end, dst, meta, max_deg)
+    if not paths.is_cuda:
+        return frontier_masks_plain(paths, begin, end, dst, meta,
+                                    max_deg=max_deg)
+    C, k1 = paths.shape
+    vnew = torch.empty((C, max_deg), dtype=torch.int32, device=paths.device)
+    emit = torch.empty_like(vnew)
+    cont = torch.empty_like(vnew)
+    counters = torch.zeros(4, dtype=torch.int32, device=paths.device)
+    status = _lib().frontier_masks_launch(
+        paths.data_ptr(), begin.data_ptr(), end.data_ptr(), dst.data_ptr(),
+        meta.data_ptr(), vnew.data_ptr(), emit.data_ptr(), cont.data_ptr(),
+        counters.data_ptr(), C, k1, max_deg, dst.shape[0],
+        torch.cuda.current_stream(paths.device).cuda_stream)
+    _build.check(status, "frontier_masks")
+    launches += 1
+    return vnew, emit, cont, counters

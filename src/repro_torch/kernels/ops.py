@@ -1,0 +1,313 @@
+"""The device paths around the kernels: frontier compaction, the resident
+work deque (K2) and the dense BFS (DESIGN.md §9).
+
+* ``frontier_expand`` — one IDX-DFS hop for a host chunk: pads the rows
+  to a power of two, runs the frontier masks (K1) and compacts the emit
+  and continue candidates into child rows in row-major order.  The
+  compaction is a prefix sum over the flat mask and a scatter
+  (no atomics choose positions), so emission order, and with it every
+  ``first_n`` prefix, is the host driver's.
+* ``frontier_deque_round`` — K2, the counterpart of ``repro``'s
+  ``ops._deque_round_jit``: ``round_pops`` iterations of in-arena
+  pop → K1 → compact → push over a device arena, with one host sync per
+  round (the caller's).  Where ``repro`` exits a ``lax.while_loop``, each
+  iteration here computes the loop condition on the device and masks its
+  own effects once it fails, so later iterations change nothing.  The
+  geometry, the pop sequence and every returned array equal ``repro``'s.
+  The round updates ``arena``, ``meta_depth`` and ``meta_len`` in place
+  (the arena is the largest buffer of a query; ``repro`` copies it).
+* ``bfs_dense`` — k min-plus relaxations (K4) from one source.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .frontier_expand import PAD, frontier_masks, frontier_masks_plain
+from .semiring_spmm import minplus_spmv
+
+# deque rounds run on a CUDA device since process start (one per call,
+# as ``repro`` counts one dispatch per round)
+deque_rounds: int = 0
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(x - 1, 0).bit_length() if x > 1 else 1
+
+
+def _compact(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Positions of the set entries of a flat mask, in order, padded with
+    0 to the mask's length (``jnp.nonzero(size=cap, fill_value=0)``), and
+    their count as a 0-d tensor.  A prefix sum ranks the set entries and
+    a scatter places them; unset entries land in a scratch tail."""
+    cap = mask.shape[0]
+    slots = torch.arange(cap, device=mask.device)
+    rank = torch.cumsum(mask, dim=0) - 1
+    dest = torch.where(mask, rank, cap + slots)
+    out = torch.zeros(2 * cap, dtype=torch.int64, device=mask.device)
+    out[dest] = slots
+    return out[:cap], mask.sum()
+
+
+def _children(paths: torch.Tensor, vflat: torch.Tensor, idxs: torch.Tensor,
+              depth: torch.Tensor, max_deg: int) -> torch.Tensor:
+    """Child rows of the candidates at flat positions ``idxs``: the parent
+    row with the candidate written at column depth+1."""
+    rows = paths.index_select(0, idxs // max_deg)
+    col = torch.arange(paths.shape[1], device=paths.device)
+    return torch.where(col[None, :] == depth + 1,
+                       vflat.index_select(0, idxs)[:, None], rows)
+
+
+def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
+                    end: torch.Tensor, dst: torch.Tensor, *, depth: int,
+                    t: int, max_deg: int, want_cont: bool = True
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor, torch.Tensor]:
+    """One IDX-DFS hop for a whole host chunk on ``begin``'s device.
+
+    ``paths`` is the (rows, k+1) int32 chunk at ``depth``; ``begin`` /
+    ``end`` / ``dst`` are the index's int32 device arrays; ``max_deg`` is
+    the chunk's largest fan-out (>= 1).  Returns ``(emit_rows, cont_rows,
+    n_emit, n_cont, counters)`` on the device, as ``repro``'s
+    ``ops.frontier_expand`` does: the first ``n_emit`` rows of
+    ``emit_rows`` are the completed paths in host emission order, the
+    first ``n_cont`` rows of ``cont_rows`` the surviving partials, and
+    ``counters`` the (4,) int32 Fig.-6 deltas.  ``want_cont=False`` (the
+    last hop) skips the continue compaction; counters are unaffected.
+    """
+    paths = np.asarray(paths, dtype=np.int32)
+    rows, k1 = paths.shape
+    if depth + 2 > k1:
+        raise ValueError(f"depth {depth} leaves no column for the hop")
+    if max_deg < 1:
+        raise ValueError("zero-fanout chunks never reach the device")
+    C = _next_pow2(max(rows, 8))
+    padded = np.full((C, k1), PAD, dtype=np.int32)
+    padded[:rows] = paths
+    dev = begin.device
+    p = torch.from_numpy(padded).to(dev)
+    meta = torch.tensor([depth, t], dtype=torch.int32).to(dev)
+    md = _next_pow2(max_deg)
+    vnew, emit, cont, counters = frontier_masks(p, begin, end, dst, meta,
+                                                max_deg=md)
+    vflat = vnew.view(-1)
+    eidx, n_emit = _compact(emit.view(-1) != 0)
+    emit_rows = _children(p, vflat, eidx, meta[0], md)
+    if want_cont:
+        cidx, n_cont = _compact(cont.view(-1) != 0)
+        cont_rows = _children(p, vflat, cidx, meta[0], md)
+    else:
+        cont_rows = p[:0]
+        n_cont = torch.zeros((), dtype=torch.int64, device=dev)
+    return emit_rows, cont_rows, n_emit, n_cont, counters
+
+
+def bfs_dense(adj: torch.Tensor, src: int, k: int, *,
+              inf: float = 1e9) -> torch.Tensor:
+    """Bounded BFS over a dense float32 adjacency: k min-plus relaxations
+    (K4) from ``src``; unreachable vertices keep ``inf``."""
+    dist = torch.full((adj.shape[0],), inf, dtype=torch.float32,
+                      device=adj.device)
+    dist[src] = 0.0
+    for _ in range(k):
+        dist = minplus_spmv(adj, dist, inf=inf)
+    return dist
+
+
+# ---------------------------------------------------------------------------
+# Device-resident work deque (K2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class DequeConfig:
+    """Static geometry of the device-resident work deque (``repro``'s).
+
+    The arena is a row stack: live chunk rows occupy ``[0, top)`` and
+    chunk ``j`` (meta slot ``j``, bottom to top) spans the rows between
+    the cumulative lengths of its predecessors; pops read from the top,
+    pushes scatter continue pieces back so the host driver's reversed
+    piece order is kept (piece 0 topmost).  Rows past ``arena_cap`` and
+    meta slots past ``max_chunks`` are scratch targets of masked
+    scatters and are never read back.
+    """
+    k1: int              # path width k + 1
+    chunk_size: int      # the driver's chunk split (cs)
+    block_rows: int      # B: pow2 row height of one pop (>= chunk_size)
+    max_deg: int         # pow2 fan-out bound of the whole index
+    cap: int             # block_rows * max_deg candidate slots
+    arena_cap: int       # live arena rows (stack region)
+    arena_rows: int      # arena_cap + cap (scratch tail)
+    emit_cap: int        # emitted rows one round may buffer
+    max_chunks: int      # live meta slots
+    max_pieces: int      # bound on pieces one push can create
+    round_pops: int      # pops per host round trip
+
+
+def deque_config(k1: int, chunk_size: int, max_deg: int,
+                 round_pops: int = 64) -> DequeConfig:
+    """Size a ``DequeConfig`` for one index and driver (``repro``'s
+    formulas)."""
+    B = _next_pow2(max(chunk_size, 8))
+    md = _next_pow2(max(max_deg, 1))
+    cap = B * md
+    arena_cap = max(8 * cap, 4 * B)
+    emit_cap = max(4 * cap, 4 * B)
+    maxp = cap // max(chunk_size, 1) + 2
+    maxc = max(4096, 8 * maxp)
+    return DequeConfig(k1=k1, chunk_size=chunk_size, block_rows=B,
+                       max_deg=md, cap=cap, arena_cap=arena_cap,
+                       arena_rows=arena_cap + cap, emit_cap=emit_cap,
+                       max_chunks=maxc, max_pieces=maxp,
+                       round_pops=round_pops)
+
+
+def frontier_deque_init(root: np.ndarray, *, cfg: DequeConfig,
+                        device: torch.device | str
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor, torch.Tensor]:
+    """Fresh deque state on ``device`` holding one root chunk (the (k+1,)
+    root row): ``(arena, meta_depth, meta_len, top, n_chunks)``."""
+    arena = torch.full((cfg.arena_rows, cfg.k1), PAD, dtype=torch.int32,
+                       device=device)
+    arena[0] = torch.as_tensor(np.asarray(root, np.int32)).to(device)
+    meta_depth = torch.zeros(cfg.max_chunks + cfg.max_pieces,
+                             dtype=torch.int32, device=device)
+    meta_len = meta_depth.clone()
+    meta_len[0] = 1
+    one = torch.ones((), dtype=torch.int32, device=device)
+    return arena, meta_depth, meta_len, one, one.clone()
+
+
+MasksFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]]
+
+
+def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
+                 meta_len: torch.Tensor, top: torch.Tensor,
+                 n_chunks: torch.Tensor, begin: torch.Tensor,
+                 end: torch.Tensor, dst: torch.Tensor, t: int, *,
+                 cfg: DequeConfig, masks: MasksFn
+                 ) -> tuple[torch.Tensor, ...]:
+    """``round_pops`` masked pop → masks → compact → push iterations."""
+    dev = arena.device
+    cs, cap, B, k1 = cfg.chunk_size, cfg.cap, cfg.block_rows, cfg.k1
+
+    def i32(x: int) -> torch.Tensor:
+        return torch.tensor(x, dtype=torch.int32).to(dev)
+
+    rowid = torch.arange(B, device=dev)
+    slots = torch.arange(cap, device=dev)
+    pj = torch.arange(cfg.max_pieces, device=dev)
+    arena_scratch = cfg.arena_cap + slots
+    meta_scratch = cfg.max_chunks + pj
+    t_dev = i32(t)
+    emitbuf = torch.full((cfg.emit_cap + cap, k1), PAD, dtype=torch.int32,
+                         device=dev)
+    emitlen = torch.zeros(cfg.emit_cap + cap, dtype=torch.int32, device=dev)
+    top = top.to(torch.int64)
+    nc = n_chunks.to(torch.int64)
+    ne = torch.zeros((), dtype=torch.int64, device=dev)
+    ctr = torch.zeros(4, dtype=torch.int32, device=dev)
+    pops = torch.zeros((), dtype=torch.int64, device=dev)
+
+    for _ in range(cfg.round_pops):
+        active = ((nc > 0) & (pops < cfg.round_pops)
+                  & (top + cap <= cfg.arena_cap)
+                  & (ne + cap <= cfg.emit_cap)
+                  & (nc + cfg.max_pieces <= cfg.max_chunks))
+        # pop the top chunk: gathers at a device offset (indexing with a
+        # 0-d tensor would read it on the host and stall the stream)
+        cidx = torch.clamp(nc - 1, min=0).view(1)
+        clen = meta_len.index_select(0, cidx).to(torch.int64).view(())
+        cdepth = meta_depth.index_select(0, cidx).view(())
+        cstart = top - clen
+        block = arena.index_select(
+            0, torch.clamp(cstart + rowid, 0, cfg.arena_rows - 1))
+        paths = torch.where(((rowid < clen) & active)[:, None], block, PAD)
+        meta = torch.stack([cdepth, t_dev])
+        vnew, emit, cont, ctr1 = masks(paths, begin, end, dst, meta,
+                                       max_deg=cfg.max_deg)
+        ctr = ctr + ctr1                       # all-PAD rows add zeros
+        vflat = vnew.view(-1)
+
+        # completed paths: the compacted emit children land at n_emit
+        flat_emit = emit.view(-1) != 0
+        eidx, ne_new = _compact(flat_emit)
+        echild = _children(paths, vflat, eidx, cdepth, cfg.max_deg)
+        wpos = ne + slots
+        emitbuf[wpos] = torch.where(active, echild, emitbuf[wpos])
+        emitlen[wpos] = torch.where(active, (cdepth + 1).to(torch.int32),
+                                    emitlen[wpos])
+        ne = ne + ne_new
+
+        # push: scatter cont children so piece 0 lands on top (the host
+        # driver pushes pieces reversed) with intra-piece order intact
+        s_top = torch.where(active, cstart, top)
+        s_nc = torch.where(active, nc - 1, nc)
+        wantc = cdepth + 1 < k1 - 1
+        flat_cont = (cont.view(-1) != 0) & wantc
+        n_cont = flat_cont.sum()
+        crank = torch.cumsum(flat_cont, dim=0) - 1
+        piece = torch.div(crank, cs, rounding_mode="floor")
+        np_pieces = torch.div(n_cont + cs - 1, cs, rounding_mode="floor")
+        dest = (s_top + n_cont - torch.minimum((piece + 1) * cs, n_cont)
+                + (crank - piece * cs))
+        dest = torch.where(flat_cont, dest, arena_scratch)
+        children = _children(paths, vflat, slots, cdepth, cfg.max_deg)
+        arena[dest] = torch.where(active, children, arena[dest])
+        slot = torch.where(pj < np_pieces, s_nc + np_pieces - 1 - pj,
+                           meta_scratch)
+        meta_depth[slot] = torch.where(active, (cdepth + 1).to(torch.int32),
+                                       meta_depth[slot])
+        piece_len = torch.clamp(n_cont - pj * cs, 0, cs).to(torch.int32)
+        meta_len[slot] = torch.where(active, piece_len, meta_len[slot])
+        top = s_top + n_cont
+        nc = s_nc + np_pieces
+        pops = pops + active.to(torch.int64)
+
+    return (arena, meta_depth, meta_len, top.to(torch.int32),
+            nc.to(torch.int32), emitbuf, emitlen, ne.to(torch.int32), ctr,
+            pops.to(torch.int32))
+
+
+def frontier_deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
+                         meta_len: torch.Tensor, top: torch.Tensor,
+                         n_chunks: torch.Tensor, begin: torch.Tensor,
+                         end: torch.Tensor, dst: torch.Tensor, t: int, *,
+                         cfg: DequeConfig) -> tuple[torch.Tensor, ...]:
+    """One host round trip of the device-resident deque.
+
+    Runs up to ``cfg.round_pops`` pop → expand → push iterations on the
+    state's device, with the frontier kernel (K1) on a CUDA device and
+    its plain version on the CPU, and returns ``(arena, meta_depth,
+    meta_len, top, n_chunks, emitbuf, emitlen, n_emit, counters, pops)``
+    as ``repro``'s ``ops.frontier_deque_round`` does.  The first
+    ``n_emit`` rows of ``emitbuf`` are the paths completed this round
+    (``emitlen`` their hop counts), ``counters`` the summed (4,) Fig.-6
+    vector and ``pops`` the chunks consumed.  ``pops == 0`` with
+    ``n_chunks > 0`` is a capacity stall: the caller rebuilds its host
+    work list from ``arena[:top]`` and the bottom ``n_chunks`` meta
+    slots.  The input state is updated in place.
+    """
+    global deque_rounds
+    out = _deque_round(arena, meta_depth, meta_len, top, n_chunks, begin,
+                       end, dst, t, cfg=cfg, masks=frontier_masks)
+    if arena.is_cuda:
+        deque_rounds += 1
+    return out
+
+
+def frontier_deque_round_plain(arena: torch.Tensor, meta_depth: torch.Tensor,
+                               meta_len: torch.Tensor, top: torch.Tensor,
+                               n_chunks: torch.Tensor, begin: torch.Tensor,
+                               end: torch.Tensor, dst: torch.Tensor, t: int,
+                               *, cfg: DequeConfig
+                               ) -> tuple[torch.Tensor, ...]:
+    """``frontier_deque_round`` with the plain frontier masks on any
+    device: the version the CUDA round is held to on the card."""
+    return _deque_round(arena, meta_depth, meta_len, top, n_chunks, begin,
+                        end, dst, t, cfg=cfg, masks=frontier_masks_plain)

@@ -1,0 +1,124 @@
+"""The port's boundaries: what it imports, where it runs, how it fails.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
+  ``repro`` (an AST scan of every import statement).
+* The entry points default to ``device="cuda"``: without a CUDA device a
+  default call raises instead of running on the CPU.
+* A kernel wrapper given CPU tensors runs the plain version and counts
+  no launch.
+* ``chip_smoke.py`` exits non-zero and prints no result without a CUDA
+  device, and when run from a directory that holds nothing else of the
+  repository.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core as tc
+from repro_torch import kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels import frontier_expand as fe
+from repro_torch.kernels import semiring_spmm as sr
+
+REPO = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    assert len(files) >= 15
+    return files + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 \
+                and node.module:
+            yield node.module.split(".")[0]
+        elif isinstance(node, ast.Call) and getattr(
+                node.func, "attr", getattr(node.func, "id", "")) in (
+                    "import_module", "__import__") and node.args \
+                and isinstance(node.args[0], ast.Constant):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_imports_neither_jax_nor_repro():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for root in _imported_roots(tree):
+            if root in FORBIDDEN:
+                bad.append(f"{path.relative_to(REPO)} imports {root}")
+    assert not bad, bad
+
+
+def test_default_device_is_cuda():
+    g = tc.erdos_renyi(40, 4.0, seed=7)
+    if torch.cuda.is_available():
+        out = tc.PathEnum().query(g, 0, 39, 4)
+        assert out.index.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.PathEnum().query(g, 0, 39, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.build_index(g, 0, 39, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.build_index_device(g, 0, 39, 4)
+    idx = tc.build_index(g, 0, 39, 4, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.enumerate_paths_idx(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.walk_count_dp(idx)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    kernels.reset_launch_counts()
+    loaded = dict(_build._loaded)
+    paths = torch.tensor([[0, -1, -1]], dtype=torch.int32)
+    begin = torch.tensor([0, 1, 1], dtype=torch.int32)
+    end = torch.tensor([[1, 1, 1], [1, 1, 1], [1, 1, 1]], dtype=torch.int32)
+    dst = torch.tensor([2], dtype=torch.int32)
+    meta = torch.tensor([0, 2], dtype=torch.int32)
+    got = fe.frontier_masks(paths, begin, end, dst, meta, max_deg=1)
+    want = fe.frontier_masks_plain(paths, begin, end, dst, meta, max_deg=1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].tolist() == [[1]] and got[3].tolist() == [1, 1, 0, 0]
+    adj = torch.ones((4, 4))
+    assert torch.equal(sr.counting_spmm(adj, torch.ones((4, 1))),
+                       torch.full((4, 1), 4.0))
+    assert torch.equal(sr.minplus_spmv(adj, torch.zeros(4), inf=1e9),
+                       torch.zeros(4))
+    assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
+    assert _build._loaded == loaded        # nothing was built or loaded
+    with pytest.raises(TypeError):
+        fe.frontier_masks(paths.long(), begin, end, dst, meta, max_deg=1)
+
+
+def _run_smoke(cwd, env):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+
+
+def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    res = _run_smoke(REPO, env)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path, dict(os.environ))
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout
+    assert np.array_equal(sorted(p.name for p in tmp_path.iterdir()),
+                          ["chip_smoke.py"])
