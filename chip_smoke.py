@@ -26,15 +26,26 @@ Phases, one JSON line each (``{"phase": ...}``):
    graphs of at most 2048 vertices: ``power_law(2000, 6.0, seed=3)`` with
    ``mode="join"`` and with ``mode="auto"`` at a τ low enough that the
    full estimator runs.
-5. ``check``   — the main path's results against the port's host backend
+5. ``batch``   — the batch engine on the same large graph through
+   ``BatchPathEnum(backend="device").run``: the stacked BFS on the card,
+   the host index builds, and three legs.  ``fused``: ``--batch`` k = 8
+   queries with pairwise distinct s and t, all enumerated together in
+   fused launches of K5.  ``shared``: 4 sources × 4 targets of those
+   queries, with duplicates, run twice (overlap groups share one prefix
+   walk; the second run hits the index cache).  ``first_n``: the fused
+   leg again with ``first_n=1000``.
+6. ``check``   — the main path's results against the port's host backend
    run on the same indexes (counts, paths, Fig.-6 stats, plans, DP
-   tables), and the small graph's paths against the recursive oracle.
+   tables), every batch item against a solo host run of its index, and
+   the small graph's paths against the recursive oracle.
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 4.  Then the script prints the ``kernels`` line, the card's name
-and power limit as nvidia-smi gives them, and, last, the ``ok`` line.
-Any failed check exits non-zero before those lines.  Without a CUDA
-device, or outside a checkout, it exits non-zero at once.
+phase 5.  Then K5 is held against its plain version at the shape of the
+fused leg's largest dispatch (a ``kernel`` line), and the script prints
+the ``kernels`` line, the card's name and power limit as nvidia-smi
+gives them, and, last, the ``ok`` line.  Any failed check exits non-zero
+before those lines.  Without a CUDA device, or outside a checkout, it
+exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -173,15 +184,17 @@ def round_work(np, en, idx, chunk_size, pops):
 # ---------------------------------------------------------------------------
 
 def pick_large_queries(np, tc, ops, en, est, g, count, seed, dev):
-    """Up to ``count`` (s, t) pairs drawn from ``seed`` whose k=8 index
-    has at least DEVICE_AUTO_MIN_EDGES edges, is planned as IDX-DFS
-    (Eq. 5 below τ) and fits the resident deque's slot budget; probing
-    stops after PICK_SECONDS."""
+    """Up to ``count`` (s, t) pairs drawn from ``seed``, pairwise distinct
+    in s and in t, whose k=8 index has at least DEVICE_AUTO_MIN_EDGES
+    edges, is planned as IDX-DFS (Eq. 5 below τ) and fits the resident
+    deque's slot budget; probing stops after PICK_SECONDS."""
     rng = np.random.default_rng(seed)
     picked, probes = [], 0
     t_end = time.perf_counter() + PICK_SECONDS
     while len(picked) < count and time.perf_counter() < t_end:
         s, t = (int(x) for x in rng.choice(g.n, 2, replace=False))
+        if any(s == p[0] or t == p[1] for p in picked):
+            continue
         probes += 1
         idx = tc.build_index_device(g, s, t, K_LARGE, device=dev)
         if idx.num_index_edges < en.DEVICE_AUTO_MIN_EDGES:
@@ -366,6 +379,215 @@ def small_phase(np, tc, g, dev):
     return runs
 
 
+def shared_queries(tc, est, g, picks, dev):
+    """The shared leg's batch: the first 4 sources × first 4 targets of
+    the picks, cross pairs kept where Eq. 5 stays below τ (so no pair
+    explodes the check), the first two pairs repeated.  Returns the
+    queries and an index per (s, t) for the check."""
+    idxs = {(s, t): idx for s, t, idx in picks[:4]}
+    for s, _t, _idx in picks[:4]:
+        for _s, t, _idx2 in picks[:4]:
+            if (s, t) in idxs or s == t:
+                continue
+            idx = tc.build_index_device(g, s, t, K_LARGE, device=dev)
+            if est.preliminary_estimate(idx) <= TAU:
+                idxs[(s, t)] = idx
+    pairs = list(idxs)
+    queries = [(s, t, K_LARGE) for s, t in pairs + pairs[:2]]
+    return queries, idxs
+
+
+def record_largest_fused(ops):
+    """Wrap ``ops.frontier_expand_fused`` (looked up at call time by the
+    fused driver) so the arguments of its largest call (rows × fan-out)
+    are kept; returns the record and a function that unwraps it."""
+    orig = ops.frontier_expand_fused
+    seen = {"slots": -1}
+
+    def wrapped(paths, rank, tvec, depthv, begins, ends, dsts, wantc, *,
+                max_deg):
+        slots = len(paths) * max_deg
+        if slots > seen["slots"]:
+            seen.update(slots=slots, args=(paths, rank, tvec, depthv,
+                                           begins, ends, dsts),
+                        max_deg=max_deg)
+        return orig(paths, rank, tvec, depthv, begins, ends, dsts, wantc,
+                    max_deg=max_deg)
+
+    ops.frontier_expand_fused = wrapped
+
+    def restore():
+        ops.frontier_expand_fused = orig
+    return seen, restore
+
+
+def engine_index_bytes(tc, eng, g, items):
+    """Device bytes of the index arrays the engine's cache holds for a
+    batch's distinct queries, and how many of those indexes hold device
+    arrays at all (a host walk never makes them).  Reads the cache with
+    ``peek``, so its LRU order and counters stay as they are, and makes
+    no arrays an index has not made itself."""
+    mh = tc.batch.edge_mask_hash(None)
+    nbytes = held = 0
+    for s, t, k in {(i.s, i.t, i.k) for i in items}:
+        idx = eng.cache.peek((tc.DEFAULT_GRAPH_ID, s, t, k, mh,
+                              int(g.version)))
+        check(idx is not None, f"{s}->{t}: no index in the engine's cache")
+        arrays = idx.__dict__.get("_device_arrays")  # made on first use
+        if arrays is not None:
+            nbytes += arrays.memory_bytes()
+            held += 1
+    return {"index_device_bytes": nbytes, "indexes_on_device": held}
+
+
+def batch_phase(torch, tc, fe, ops, g, picks, shared, dev, nbatch):
+    """The batch engine's three legs; returns the outputs to check."""
+    eng = tc.BatchPathEnum(tau=TAU, chunk_size=CHUNK, backend="device",
+                           device=dev)
+    fused_qs = [(s, t, K_LARGE) for s, t, _ in picks[:nbatch]]
+    shared_qs, shared_idx = shared
+    index_of = dict(shared_idx)
+    index_of.update({(s, t): idx for s, t, idx in picks[:nbatch]})
+    largest, restore = record_largest_fused(ops)
+    runs = []
+    legs = [("fused", fused_qs, {}), ("shared", shared_qs, {}),
+            ("shared_again", shared_qs, {}),
+            ("first_n", fused_qs, {"first_n": 1000})]
+    try:
+        for leg, qs, kw in legs:
+            k5 = fe.fused_launches
+            torch.cuda.synchronize()
+            out = eng.run(g, qs, count_only=False, **kw)
+            torch.cuda.synchronize()
+            k5 = fe.fused_launches - k5
+            tm = out.timing
+            emit({"phase": "batch", "leg": leg, "queries": len(qs),
+                  "distinct": out.distinct_queries,
+                  "distance_s": tm.distance_seconds,
+                  "index_s": tm.index_seconds,
+                  "optimize_s": tm.optimize_seconds,
+                  "enumerate_s": tm.enumerate_seconds,
+                  "total_s": tm.total_seconds,
+                  "queries_per_s": out.throughput_qps,
+                  "fused_queries": out.fused_queries,
+                  "fused_dispatches": out.fused_dispatches,
+                  "k5_launches": k5,
+                  "sharing_groups": out.sharing_groups,
+                  "shared_queries": out.shared_queries,
+                  "cache_hits": out.cache_stats.hits,
+                  "cache_misses": out.cache_stats.misses,
+                  **engine_index_bytes(tc, eng, g, out.items),
+                  "plans": sorted({i.plan.method for i in out.items}),
+                  "results": out.total_results})
+            runs.append((leg, kw, out, k5))
+            if leg == "fused":
+                restore()
+    finally:
+        restore()
+    fused_out = runs[0][2]
+    check(fused_out.fused_queries == len(fused_qs),
+          f"fused leg: {fused_out.fused_queries} of {len(fused_qs)} "
+          f"queries fused")
+    check(fused_out.fused_dispatches >= 1 and runs[0][3] >= 1,
+          "fused leg: no fused dispatch / K5 launch")
+    check(runs[1][2].sharing_groups >= 1, "shared leg: no sharing group")
+    again = runs[2][2].cache_stats
+    check(again.hits == len(shared_qs) and again.misses == 0,
+          f"shared leg, second run: cache {again}")
+    return runs, index_of, largest
+
+
+def fused_kernel_row(torch, np, fe, largest, dev):
+    """K5 against its plain version at the fused leg's largest dispatch,
+    padded as ``ops.frontier_expand_fused`` pads it."""
+    paths, rank, tvec, depthv, begins, ends, dsts = largest["args"]
+    rank = np.asarray(rank)
+    rows, k1 = paths.shape
+    C = 1 << max(max(rows, 8) - 1, 0).bit_length()
+    md = 1 << max(largest["max_deg"] - 1, 0).bit_length()
+    padded = np.full((C, k1), -1, np.int32)
+    padded[:rows] = paths
+    rk = np.zeros(C, np.int32)
+    rk[:rows] = rank
+    args = (torch.from_numpy(padded).to(dev), torch.from_numpy(rk).to(dev),
+            torch.from_numpy(np.asarray(tvec, np.int32)).to(dev),
+            torch.from_numpy(np.asarray(depthv, np.int32)).to(dev),
+            begins, ends, dsts)
+    got = fe.frontier_fused_masks(*args, max_deg=md)
+    want = fe.frontier_fused_masks_plain(*args, max_deg=md)
+    err = max_abs_err(torch, got, want)
+    check(err == 0, f"frontier_fused_masks differs from its plain version: "
+                    f"{err}")
+    m = len(begins)
+    depth_rows = np.asarray(depthv)[rank].astype(np.int64)
+    last = paths[np.arange(rows), depth_rows].astype(np.int64)
+    valid = last >= 0
+    # each valid row's candidate edges: end[last, k - depth - 1] - begin
+    # in its own member's index, as the kernel reads them
+    cnt = np.zeros(rows, np.int64)
+    for j in range(m):
+        sel = np.flatnonzero(valid & (rank == j))
+        if sel.size:
+            k1m = ends[j].shape[1]
+            b = min(max(k1m - 2 - int(depthv[j]), 0), k1m - 1)
+            v = torch.from_numpy(last[sel]).to(dev)
+            cnt[sel] = (ends[j][v, b] - begins[j][v]).cpu().numpy()
+    edges = int(cnt.sum())
+    check(edges == int(got[3][:, 0].sum()),
+          f"K5 edge count {edges} vs its counters {int(got[3][:, 0].sum())}")
+    # bytes the kernel must move: each valid row's prefix up to its own
+    # depth and its begin/end gathers, one int32 of each other row (the
+    # PAD rows'), the rank tags, one dst read per candidate edge, three
+    # int32 outputs per slot, the member table, t, depth and counters
+    nbytes = (int(((depth_rows[valid] + 1) * 4 + 8).sum())
+              + int((C - valid.sum()) * 4) + C * 4 + edges * 4
+              + 3 * C * md * 4 + m * (5 * 8 + 8) + m * 16)
+    # per candidate edge: one compare per prefix entry, plus the range,
+    # emit, continue and clip tests
+    b_ms, b_by = bound(nbytes, int((cnt * (depth_rows + 4)).sum()))
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: fe.frontier_fused_masks(*args,
+                                                          max_deg=md), 50),
+        plain_ms=time_ms(torch, lambda: fe.frontier_fused_masks_plain(
+            *args, max_deg=md), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=dict(rows=C, real_rows=rows, members=m, k1=k1, max_deg=md,
+                   edges=edges, valid_rows=int(valid.sum())))
+    emit({"phase": "kernel", "name": "frontier_fused_masks", **row})
+    return row
+
+
+def check_batch(tc, batch_runs, index_of, dev):
+    """Every batch item against a solo host run of the same index: count,
+    paths and order, stats and exhausted; plans against the host plan."""
+    for leg, kw, out, _k5 in batch_runs:
+        for item in out.items:
+            idx = index_of[(item.s, item.t)]
+            tag = f"batch {leg} {item.s}->{item.t}"
+            plan = tc.plan_query(idx, tau=TAU, backend="host")
+            check((item.plan.method, item.plan.cut, item.plan.preliminary)
+                  == (plan.method, plan.cut, plan.preliminary),
+                  f"{tag}: plan differs")
+            if plan.method == "dfs":
+                host = tc.enumerate_paths_idx(idx, chunk_size=CHUNK,
+                                              backend="host", device=dev,
+                                              **kw)
+            else:
+                host = tc.enumerate_paths_join(idx, cut=plan.cut,
+                                               max_partials=20_000_000, **kw)
+            r = item.result
+            check(r.count == host.count, f"{tag}: count {r.count} vs "
+                                         f"{host.count}")
+            check(r.stats == host.stats, f"{tag}: stats {r.stats} vs "
+                                         f"{host.stats}")
+            check(r.as_tuples() == host.as_tuples(), f"{tag}: paths differ")
+            check(r.exhausted == host.exhausted, f"{tag}: exhausted differs")
+        if leg == "fused":
+            check(all(i.fused for i in out.items),
+                  f"batch {leg}: an item did not run fused")
+
+
 def check_phase(np, tc, large_runs, small_runs, g_small, dev):
     """Main-path results against the host backend and the oracle."""
     for s, t, leg, kw, out, rounds in large_runs:
@@ -422,6 +644,8 @@ def main() -> None:
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="vertices of the large graph (average degree 16)")
     ap.add_argument("--queries", type=int, default=3)
+    ap.add_argument("--batch", type=int, default=16,
+                    help="queries of the batch phase's fused leg")
     args = ap.parse_args()
 
     import torch
@@ -430,7 +654,7 @@ def main() -> None:
              "card and has nothing to run without one")
     if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
         fail("src/repro_torch is missing: run from a checkout of the repo")
-    for var in ("REPRO_DEVICE_ENUM", "REPRO_DEVICE_DEQUE"):
+    for var in ("REPRO_DEVICE_ENUM", "REPRO_DEVICE_DEQUE", "REPRO_SHARING"):
         if var in os.environ:
             fail(f"{var} is set; it would move work off the path measured "
                  f"here")
@@ -475,9 +699,15 @@ def main() -> None:
           "generate_s": gen_s, "to_device_s": time.perf_counter() - t0,
           "graph_device_bytes": dg.memory_bytes()})
     t0 = time.perf_counter()
-    queries, probes = pick_large_queries(np, tc, ops, en, est, g,
-                                         args.queries, args.seed, dev)
-    emit({"phase": "setup", "queries": [(s, t) for s, t, _ in queries],
+    picks, probes = pick_large_queries(np, tc, ops, en, est, g,
+                                       max(args.queries, args.batch),
+                                       args.seed, dev)
+    check(len(picks) >= max(args.queries, args.batch, 4),
+          f"only {len(picks)} queries qualified in {probes} probes")
+    queries = picks[:args.queries]
+    shared = shared_queries(tc, est, g, picks, dev)
+    emit({"phase": "setup", "queries": [(s, t) for s, t, _ in picks],
+          "shared_queries": [(s, t) for s, t, _ in shared[0]],
           "probes": probes, "pick_s": time.perf_counter() - t0})
     g_small = tc.power_law(2000, 6.0, seed=3)
 
@@ -487,10 +717,15 @@ def main() -> None:
     kernels.reset_launch_counts()
     large_runs = large_phase(torch, tc, kernels, g, queries, dev)
     small_runs = small_phase(np, tc, g_small, dev)
+    batch_runs, index_of, largest = batch_phase(
+        torch, tc, fe, ops, g, picks, shared, dev, args.batch)
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
 
+    rows["frontier_fused_masks"] = fused_kernel_row(torch, np, fe, largest,
+                                                    dev)
     check_phase(np, tc, large_runs, small_runs, g_small, dev)
+    check_batch(tc, batch_runs, index_of, dev)
     for name, n_launch in launches.items():
         check(n_launch > 0, f"{name} never launched on the main path")
     emit({"phase": "check", "ok": True,
@@ -499,6 +734,9 @@ def main() -> None:
     where = {
         "frontier_masks": ("src/repro_torch/kernels/csrc/frontier.cu",
                            "src/repro/kernels/frontier_expand.py:47"),
+        "frontier_fused_masks": (
+            "src/repro_torch/kernels/csrc/frontier_fused.cu",
+            "src/repro/kernels/frontier_expand.py:95"),
         "frontier_deque_round": ("src/repro_torch/kernels/ops.py",
                                  "src/repro/kernels/ops.py:382"),
         "counting_spmm": ("src/repro_torch/kernels/csrc/semiring.cu",

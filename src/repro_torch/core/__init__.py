@@ -1,10 +1,14 @@
 """PathEnum core on PyTorch: index, estimators, optimizer, enumerators
 (the port of ``repro.core``; DESIGN.md §1-2 describe the pipeline)."""
 
-from . import clock, oracle, planner, rank
+from . import clock, oracle, planner, rank, sharing
+from .batch import (DEFAULT_GRAPH_ID, BatchItem, BatchOutput, BatchPathEnum,
+                    BatchTiming, CacheStats, IndexCache,
+                    batched_index_distances, edge_mask_hash, tenant_of)
 from .device import resolve_device
 from .enumerate import (EngineLimit, EnumResult, EnumStats,
                         enumerate_paths_idx, resolve_backend)
+from .fused import enumerate_fused_device
 from .estimator import WalkCountDP, preliminary_estimate, walk_count_dp
 from .graph import (DeviceGraph, Graph, complete, erdos_renyi, from_edges,
                     grid, layered_dag, power_law, random_graph_suite)
@@ -15,6 +19,9 @@ from .pathenum import PathEnum, QueryOutput, QueryTiming
 from .planner import DEFAULT_TAU, Plan, plan_query
 
 __all__ = [
+    "BatchItem", "BatchOutput", "BatchPathEnum", "BatchTiming", "CacheStats",
+    "DEFAULT_GRAPH_ID", "IndexCache", "batched_index_distances",
+    "edge_mask_hash", "enumerate_fused_device", "sharing", "tenant_of",
     "DEFAULT_TAU", "DeviceGraph", "DeviceIndexArrays", "EngineLimit",
     "EnumResult", "EnumStats", "Graph", "LightweightIndex", "PathEnum",
     "Plan", "QueryOutput", "QueryTiming", "WalkCountDP", "build_index",

@@ -72,6 +72,14 @@ class EnumStats:
     results: int = 0
     chunks: int = 0
 
+    def merge(self, other: "EnumStats") -> None:
+        """Add another run's counters into this one."""
+        self.edges_accessed += other.edges_accessed
+        self.invalid_partials += other.invalid_partials
+        self.partials_generated += other.partials_generated
+        self.results += other.results
+        self.chunks += other.chunks
+
 
 @dataclasses.dataclass
 class EnumResult:

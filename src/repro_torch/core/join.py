@@ -122,8 +122,15 @@ def enumerate_paths_join(
     deadline: Optional[float] = None,
     order: Optional[str] = None,
     weights: Optional[np.ndarray] = None,
+    _shared_ra=None,
 ) -> EnumResult:
     """Algorithm 6 with cut position ``cut`` (i*).
+
+    ``_shared_ra`` is the cross-query sharing hook (DESIGN.md §13): a
+    callable ``(stats, max_partials) -> ndarray`` that stands in for the
+    R_a half expansion, deriving the same width-``cut+1`` relation (same
+    rows, same stats, same ``EngineLimit``) from a group's shared prefix
+    walk (``core.sharing``).  R_b and the join are unchanged.
 
     ``first_n`` evaluates both halves but stops emitting after exactly n
     results (``exhausted=False``); ``deadline`` (absolute
@@ -144,8 +151,11 @@ def enumerate_paths_join(
     if _expired():
         return _finalize(idx, [], [], 0, stats, exhausted=False)
 
-    ra = _expand_to_width(idx, np.array([s], np.int32), 0, cut + 1, stats,
-                          max_partials)
+    if _shared_ra is not None:
+        ra = _shared_ra(stats, max_partials)
+    else:
+        ra = _expand_to_width(idx, np.array([s], np.int32), 0, cut + 1,
+                              stats, max_partials)
     stats.ra_size = ra.shape[0]
     if ra.shape[0] == 0:
         return _finalize(idx, [], [], 0, stats, exhausted=True)

@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions
 (the port of ``repro.kernels``' PathEnum kernels, DESIGN.md §9).
 
-frontier_expand — K1, the IDX-DFS frontier masks
-ops             — compaction, K2 (the resident work deque), bfs_dense
+frontier_expand — K1 and K5, the IDX-DFS frontier masks (single-query
+                  and fused over many queries)
+ops             — compaction, K2 (the resident work deque), the fused
+                  expand, bfs_dense
 semiring_spmm   — K3 counting SpMM and K4 min-plus SpMV
 
 CUDA tensors launch the kernels (built from ``csrc/`` at first use by
@@ -14,6 +16,7 @@ from . import frontier_expand, ops, semiring_spmm
 def launch_counts() -> dict:
     """Kernel launches (deque rounds for K2) since the last reset."""
     return {"frontier_masks": frontier_expand.launches,
+            "frontier_fused_masks": frontier_expand.fused_launches,
             "frontier_deque_round": ops.deque_rounds,
             "counting_spmm": semiring_spmm.counting_launches,
             "minplus_spmv": semiring_spmm.minplus_launches}
@@ -22,6 +25,7 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Set every launch count to 0."""
     frontier_expand.launches = 0
+    frontier_expand.fused_launches = 0
     ops.deque_rounds = 0
     semiring_spmm.counting_launches = 0
     semiring_spmm.minplus_launches = 0

@@ -28,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 # one shared library per source file
 SOURCES: Dict[str, str] = {
     "frontier": "frontier.cu",
+    "frontier_fused": "frontier_fused.cu",
     "semiring": "semiring.cu",
 }
 

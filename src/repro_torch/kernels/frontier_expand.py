@@ -1,4 +1,5 @@
-"""K1: the IDX-DFS frontier masks, as a CUDA kernel and its plain version.
+"""K1 and K5: the IDX-DFS frontier masks, single-query and fused, as CUDA
+kernels and their plain versions.
 
 One hop of Algorithm 4 over a fixed-width ``(C, k+1)`` int32 chunk of
 partial paths, all at one depth (DESIGN.md §9): gather each row's
@@ -25,6 +26,17 @@ Layout (the JAX package's, so both can be held against each other):
 ``frontier_masks`` launches the kernel for CUDA tensors and runs
 ``frontier_masks_plain`` for CPU tensors; nothing routes a CUDA tensor
 to the plain version.  ``launches`` counts kernel launches.
+
+K5, ``frontier_fused_masks``, is K1 for ``m`` queries in one launch
+(``repro``'s ``_frontier_fused_kernel``; source ``csrc/frontier_fused.cu``):
+the rows of one (C, k1max) matrix pack one chunk per member in ascending
+member rank, ``rank`` (C,) tags each row, ``tvec`` / ``depthv`` (m,) hold
+each member's target and chunk depth, and each member brings its own
+``begin`` (n,), ``end`` (n, k+1) and ``dst`` (mf,).  The kernel reads the
+members' arrays through a table of pointers; the plain version builds
+``repro``'s flattened ``(m·n,)`` / ``(m·mfm,)`` layout from them
+(``fused_flat_tables``).  Counters come out per member, ``(m, 4)``.
+``fused_launches`` counts its launches.
 """
 from __future__ import annotations
 
@@ -36,8 +48,9 @@ from . import _build
 
 PAD = -1
 
-# kernel launches since process start (chip_smoke.py resets and reads it)
+# kernel launches since process start (chip_smoke.py resets and reads them)
 launches: int = 0
+fused_launches: int = 0
 
 
 def frontier_masks_plain(paths: torch.Tensor, begin: torch.Tensor,
@@ -138,4 +151,156 @@ def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
         torch.cuda.current_stream(paths.device).cuda_stream)
     _build.check(status, "frontier_masks")
     launches += 1
+    return vnew, emit, cont, counters
+
+
+# ---------------------------------------------------------------------------
+# K5: the fused multi-query frontier masks
+# ---------------------------------------------------------------------------
+
+def fused_flat_tables(depthv: torch.Tensor, begins, ends, dsts
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``repro``'s flattened per-member tables from per-member arrays:
+    ``begin`` (m·n,), ``endb`` (m·n,) holding each member's budget column
+    ``k - depth - 1`` of ``end``, and ``dst`` (m·mfm,) with each member's
+    array padded with PAD to the longest ``mfm``."""
+    mfm = max(int(d.shape[0]) for d in dsts)
+    endb = []
+    for depth, end in zip(depthv.tolist(), ends):
+        k1 = end.shape[1]
+        endb.append(end[:, min(max(k1 - 2 - depth, 0), k1 - 1)])
+    dst = [torch.nn.functional.pad(d, (0, mfm - d.shape[0]), value=PAD)
+           for d in dsts]
+    return torch.cat(list(begins)), torch.cat(endb), torch.cat(dst)
+
+
+def frontier_fused_masks_plain(paths: torch.Tensor, rank: torch.Tensor,
+                               tvec: torch.Tensor, depthv: torch.Tensor,
+                               begins, ends, dsts, *, max_deg: int
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor, torch.Tensor]:
+    """The fused frontier masks in plain PyTorch (any device): the
+    semantics the CUDA kernel is held to, written after ``repro``'s
+    ``ref.frontier_fused_masks_ref`` over the flattened tables."""
+    begin, endb, dst = fused_flat_tables(depthv, begins, ends, dsts)
+    C, k1 = paths.shape
+    m = tvec.shape[0]
+    n = begin.shape[0] // m
+    mfm = dst.shape[0] // m
+    rk = rank.long()
+    depth = depthv.long().index_select(0, rk)
+    t = tvec.index_select(0, rk)
+    last = paths.gather(1, depth[:, None]).view(C)
+    valid = last != PAD
+    flat = rk * n + torch.where(valid, last, 0).long()     # 64-bit offsets
+    bsel = begin.index_select(0, flat)
+    esel = endb.index_select(0, flat)
+    cnt = torch.where(valid, esel - bsel, 0)
+    slot = torch.arange(max_deg, device=paths.device)[None, :]
+    in_range = slot < cnt[:, None]
+    pos = (torch.clamp(bsel[:, None].long() + slot, 0, mfm - 1)
+           + rk[:, None] * mfm)
+    vnew = dst[pos]
+    on_prefix = (torch.arange(k1, device=paths.device)[None, :]
+                 <= depth[:, None])
+    dup = ((paths[:, :, None] == vnew[:, None, :])
+           & on_prefix[:, :, None]).any(dim=1)
+    is_t = vnew == t[:, None]
+    emit = in_range & ~dup & is_t
+    cont = in_range & ~dup & ~is_t
+    alive = (emit | cont).any(dim=1)
+    dead = valid & ~alive
+    invalid_row = (dup & in_range).sum(dim=1) + dead.long()
+    edges_m = torch.zeros(m, dtype=torch.int64, device=paths.device)
+    edges_m.index_add_(0, rk, cnt.long())
+    invalid_m = torch.zeros_like(edges_m).index_add_(0, rk, invalid_row)
+    counters = torch.stack([edges_m, edges_m, invalid_m,
+                            torch.zeros_like(edges_m)], dim=1)
+    return (torch.where(emit | cont, vnew, PAD).to(torch.int32),
+            emit.to(torch.int32), cont.to(torch.int32),
+            counters.to(torch.int32))
+
+
+def _fused_lib() -> ctypes.CDLL:
+    lib = _build.load("frontier_fused")
+    fn = lib.frontier_fused_masks_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_fused_args(paths: torch.Tensor, rank: torch.Tensor,
+                      tvec: torch.Tensor, depthv: torch.Tensor, begins,
+                      ends, dsts, max_deg: int) -> None:
+    dev = paths.device
+    m = len(begins)
+    if m < 1 or len(ends) != m or len(dsts) != m:
+        raise ValueError("begins, ends and dsts need one entry per member "
+                         "(at least one)")
+    if paths.dim() != 2 or rank.shape != (paths.shape[0],):
+        raise ValueError("paths must be (C, k1) and rank (C,)")
+    if tvec.shape != (m,) or depthv.shape != (m,):
+        raise ValueError(f"tvec and depthv must be ({m},)")
+    n = begins[0].shape[0]
+    named = [("paths", paths), ("rank", rank), ("tvec", tvec),
+             ("depthv", depthv)]
+    for i in range(m):
+        named += [(f"begins[{i}]", begins[i]), (f"ends[{i}]", ends[i]),
+                  (f"dsts[{i}]", dsts[i])]
+        if begins[i].shape != (n,) or ends[i].dim() != 2 \
+                or ends[i].shape[0] != n \
+                or not 2 <= ends[i].shape[1] <= paths.shape[1]:
+            raise ValueError(f"member {i}: begin must be (n,) and end "
+                             f"(n, k+1) with n = {n} and k+1 <= "
+                             f"{paths.shape[1]}")
+        if dsts[i].dim() != 1 or dsts[i].shape[0] < 1:
+            raise ValueError(f"member {i}: dst needs at least one element")
+    for name, x in named:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, paths on {dev}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if max_deg < 1:
+        raise ValueError("max_deg must be >= 1")
+
+
+def frontier_fused_masks(paths: torch.Tensor, rank: torch.Tensor,
+                         tvec: torch.Tensor, depthv: torch.Tensor, begins,
+                         ends, dsts, *, max_deg: int
+                         ) -> tuple[torch.Tensor, torch.Tensor,
+                                    torch.Tensor, torch.Tensor]:
+    """One fused frontier hop: ``(vnew, emit, cont, counters)`` for rows
+    packed from many members, counters ``(m, 4)``.
+
+    CUDA tensors launch the kernel of ``csrc/frontier_fused.cu`` on the
+    current stream (and raise if the launch fails); CPU tensors take
+    ``frontier_fused_masks_plain``.
+    """
+    global fused_launches
+    _check_fused_args(paths, rank, tvec, depthv, begins, ends, dsts,
+                      max_deg)
+    if not paths.is_cuda:
+        return frontier_fused_masks_plain(paths, rank, tvec, depthv, begins,
+                                          ends, dsts, max_deg=max_deg)
+    C, k1 = paths.shape
+    m = len(begins)
+    table = torch.tensor(
+        [[b.data_ptr(), e.data_ptr(), d.data_ptr(), d.shape[0], e.shape[1]]
+         for b, e, d in zip(begins, ends, dsts)],
+        dtype=torch.int64).to(paths.device)
+    vnew = torch.empty((C, max_deg), dtype=torch.int32, device=paths.device)
+    emit = torch.empty_like(vnew)
+    cont = torch.empty_like(vnew)
+    counters = torch.zeros((m, 4), dtype=torch.int32, device=paths.device)
+    status = _fused_lib().frontier_fused_masks_launch(
+        paths.data_ptr(), rank.data_ptr(), tvec.data_ptr(),
+        depthv.data_ptr(), table.data_ptr(), vnew.data_ptr(),
+        emit.data_ptr(), cont.data_ptr(), counters.data_ptr(), C, k1,
+        max_deg, m, torch.cuda.current_stream(paths.device).cuda_stream)
+    _build.check(status, "frontier_fused_masks")
+    fused_launches += 1
     return vnew, emit, cont, counters

@@ -7,6 +7,11 @@ work deque (K2) and the dense BFS (DESIGN.md §9).
   compaction is a prefix sum over the flat mask and a scatter
   (no atomics choose positions), so emission order, and with it every
   ``first_n`` prefix, is the host driver's.
+* ``frontier_expand_fused`` — one fused hop for chunks of many queries
+  (K5), the counterpart of ``repro``'s ``ops.frontier_expand_fused``:
+  the same padding and flat compaction, with per-row depths, so each
+  member's emit and continue rows come out as one contiguous segment in
+  its solo emission order.
 * ``frontier_deque_round`` — K2, the counterpart of ``repro``'s
   ``ops._deque_round_jit``: ``round_pops`` iterations of in-arena
   pop → K1 → compact → push over a device arena, with one host sync per
@@ -26,12 +31,25 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .frontier_expand import PAD, frontier_masks, frontier_masks_plain
+from .frontier_expand import (PAD, frontier_fused_masks, frontier_masks,
+                              frontier_masks_plain)
 from .semiring_spmm import minplus_spmv
 
 # deque rounds run on a CUDA device since process start (one per call,
 # as ``repro`` counts one dispatch per round)
 deque_rounds: int = 0
+
+# frontier-expansion dispatches on any device since process start
+_dispatch_count: int = 0
+
+
+def device_dispatch_count() -> int:
+    """Calls of ``frontier_expand``, ``frontier_expand_fused`` and
+    ``frontier_deque_round`` since process start, on any device
+    (``repro``'s ``ops.device_dispatch_count``): the tests assert
+    "one dispatch per expansion round" on its deltas.  The per-kernel
+    counts of ``kernels.launch_counts()`` count CUDA launches only."""
+    return _dispatch_count
 
 
 def _next_pow2(x: int) -> int:
@@ -53,12 +71,16 @@ def _compact(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _children(paths: torch.Tensor, vflat: torch.Tensor, idxs: torch.Tensor,
-              depth: torch.Tensor, max_deg: int) -> torch.Tensor:
+              depth_rows: torch.Tensor, max_deg: int) -> torch.Tensor:
     """Child rows of the candidates at flat positions ``idxs``: the parent
-    row with the candidate written at column depth+1."""
-    rows = paths.index_select(0, idxs // max_deg)
+    row with the candidate written at column depth+1, where ``depth_rows``
+    holds each parent row's depth (a fused launch mixes members whose
+    chunks sit at different depths)."""
+    parents = idxs // max_deg
+    rows = paths.index_select(0, parents)
     col = torch.arange(paths.shape[1], device=paths.device)
-    return torch.where(col[None, :] == depth + 1,
+    dsel = depth_rows.index_select(0, parents)
+    return torch.where(col[None, :] == dsel[:, None] + 1,
                        vflat.index_select(0, idxs)[:, None], rows)
 
 
@@ -79,6 +101,7 @@ def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
     ``counters`` the (4,) int32 Fig.-6 deltas.  ``want_cont=False`` (the
     last hop) skips the continue compaction; counters are unaffected.
     """
+    global _dispatch_count
     paths = np.asarray(paths, dtype=np.int32)
     rows, k1 = paths.shape
     if depth + 2 > k1:
@@ -96,14 +119,86 @@ def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
                                                 max_deg=md)
     vflat = vnew.view(-1)
     eidx, n_emit = _compact(emit.view(-1) != 0)
-    emit_rows = _children(p, vflat, eidx, meta[0], md)
+    depth_rows = meta[0].expand(C)
+    emit_rows = _children(p, vflat, eidx, depth_rows, md)
     if want_cont:
         cidx, n_cont = _compact(cont.view(-1) != 0)
-        cont_rows = _children(p, vflat, cidx, meta[0], md)
+        cont_rows = _children(p, vflat, cidx, depth_rows, md)
     else:
         cont_rows = p[:0]
         n_cont = torch.zeros((), dtype=torch.int64, device=dev)
+    _dispatch_count += 1
     return emit_rows, cont_rows, n_emit, n_cont, counters
+
+
+def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
+                          tvec: np.ndarray, depthv: np.ndarray, begins,
+                          ends, dsts, wantc: np.ndarray, *, max_deg: int
+                          ) -> tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """One fused IDX-DFS hop for chunks of many queries on the members'
+    device (``repro``'s ``ops.frontier_expand_fused``).
+
+    ``paths`` (rows, k1max) int32 packs one chunk per member, rows in
+    ascending member order, each member's rows at its own depth (columns
+    past a member's own k+1 stay PAD); ``rank`` (rows,) tags each row's
+    member; ``tvec`` / ``depthv`` / ``wantc`` (m,) are each member's
+    target, chunk depth and ``want_cont`` (False on its last hop); each
+    member brings its index's device ``begin`` / ``end`` / ``dst``.  Rows
+    pad to a power of two (at least 8) with PAD rows of rank 0.
+
+    Returns ``(emit_rows, cont_rows, n_emit_m, n_cont_m, counters)`` on
+    the device: the compacted emit and continue rows in flat (row-major)
+    order, so member i's rows form one segment that starts at the
+    exclusive cumsum of ``n_emit_m`` / ``n_cont_m``, and the (m, 4)
+    per-member Fig.-6 counters.  The ``wantc`` suppression happens after
+    the kernel, which always computes the full continue mask, so the
+    counters equal the single-query kernel's.
+    """
+    global _dispatch_count
+    paths = np.asarray(paths, dtype=np.int32)
+    rows, k1 = paths.shape
+    m = len(begins)
+    if max_deg < 1:
+        raise ValueError("zero-fanout chunks never reach the device")
+    C = _next_pow2(max(rows, 8))
+    # one host buffer, one copy: [paths | rank | tvec | depthv | wantc]
+    buf = np.zeros(C * k1 + C + 3 * m, dtype=np.int32)
+    buf[:C * k1] = PAD
+    buf[:rows * k1] = paths.reshape(-1)
+    o = C * k1
+    buf[o:o + rows] = rank
+    o += C
+    buf[o:o + m] = tvec
+    buf[o + m:o + 2 * m] = depthv
+    buf[o + 2 * m:] = np.asarray(wantc, dtype=bool)
+    dbuf = torch.from_numpy(buf).to(begins[0].device)
+    p = dbuf[:C * k1].view(C, k1)
+    rk = dbuf[C * k1:o]
+    tv = dbuf[o:o + m]
+    dv = dbuf[o + m:o + 2 * m]
+    wc = dbuf[o + 2 * m:] != 0
+    md = _next_pow2(max_deg)
+    vnew, emit, cont, counters = frontier_fused_masks(
+        p, rk, tv, dv, begins, ends, dsts, max_deg=md)
+    vflat = vnew.view(-1)
+    rankflat = rk.long().repeat_interleave(md)
+    depth_rows = dv.long().index_select(0, rk.long())
+
+    def per_member(flat: torch.Tensor) -> torch.Tensor:
+        out = torch.zeros(m, dtype=torch.int32, device=p.device)
+        return out.scatter_add_(0, rankflat, flat.to(torch.int32))
+
+    flat_emit = emit.view(-1) != 0
+    eidx, _ = _compact(flat_emit)
+    emit_rows = _children(p, vflat, eidx, depth_rows, md)
+    flat_cont = (cont.view(-1) != 0) & wc.index_select(0, rankflat)
+    cidx, _ = _compact(flat_cont)
+    cont_rows = _children(p, vflat, cidx, depth_rows, md)
+    _dispatch_count += 1
+    return (emit_rows, cont_rows, per_member(flat_emit),
+            per_member(flat_cont), counters)
 
 
 def bfs_dense(adj: torch.Tensor, src: int, k: int, *,
@@ -228,6 +323,7 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
         block = arena.index_select(
             0, torch.clamp(cstart + rowid, 0, cfg.arena_rows - 1))
         paths = torch.where(((rowid < clen) & active)[:, None], block, PAD)
+        depth_rows = cdepth.expand(paths.shape[0])
         meta = torch.stack([cdepth, t_dev])
         vnew, emit, cont, ctr1 = masks(paths, begin, end, dst, meta,
                                        max_deg=cfg.max_deg)
@@ -237,7 +333,7 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
         # completed paths: the compacted emit children land at n_emit
         flat_emit = emit.view(-1) != 0
         eidx, ne_new = _compact(flat_emit)
-        echild = _children(paths, vflat, eidx, cdepth, cfg.max_deg)
+        echild = _children(paths, vflat, eidx, depth_rows, cfg.max_deg)
         wpos = ne + slots
         emitbuf[wpos] = torch.where(active, echild, emitbuf[wpos])
         emitlen[wpos] = torch.where(active, (cdepth + 1).to(torch.int32),
@@ -257,7 +353,7 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
         dest = (s_top + n_cont - torch.minimum((piece + 1) * cs, n_cont)
                 + (crank - piece * cs))
         dest = torch.where(flat_cont, dest, arena_scratch)
-        children = _children(paths, vflat, slots, cdepth, cfg.max_deg)
+        children = _children(paths, vflat, slots, depth_rows, cfg.max_deg)
         arena[dest] = torch.where(active, children, arena[dest])
         slot = torch.where(pj < np_pieces, s_nc + np_pieces - 1 - pj,
                            meta_scratch)
@@ -293,11 +389,12 @@ def frontier_deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
     work list from ``arena[:top]`` and the bottom ``n_chunks`` meta
     slots.  The input state is updated in place.
     """
-    global deque_rounds
+    global deque_rounds, _dispatch_count
     out = _deque_round(arena, meta_depth, meta_len, top, n_chunks, begin,
                        end, dst, t, cfg=cfg, masks=frontier_masks)
     if arena.is_cuda:
         deque_rounds += 1
+    _dispatch_count += 1
     return out
 
 

@@ -67,7 +67,14 @@ def test_default_device_is_cuda():
     if torch.cuda.is_available():
         out = tc.PathEnum().query(g, 0, 39, 4)
         assert out.index.device.type == "cuda"
+        batch = tc.BatchPathEnum().run(g, [(0, 39, 4), (1, 38, 4)])
+        assert all(i.result.count >= 0 for i in batch.items)
+        assert tc.BatchPathEnum().device.type == "cuda"
         return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.BatchPathEnum()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tc.batched_index_distances(g, [(0, 39, 4)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tc.PathEnum().query(g, 0, 39, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -99,10 +106,29 @@ def test_cpu_tensors_take_the_plain_versions():
                        torch.full((4, 1), 4.0))
     assert torch.equal(sr.minplus_spmv(adj, torch.zeros(4), inf=1e9),
                        torch.zeros(4))
+    rank = torch.zeros(1, dtype=torch.int32)
+    tv = torch.tensor([2], dtype=torch.int32)
+    dv = torch.tensor([0], dtype=torch.int32)
+    got = fe.frontier_fused_masks(paths, rank, tv, dv, [begin], [end],
+                                  [dst], max_deg=1)
+    want = fe.frontier_fused_masks_plain(paths, rank, tv, dv, [begin],
+                                         [end], [dst], max_deg=1)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert got[1].tolist() == [[1]] and got[3].tolist() == [[1, 1, 0, 0]]
     assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
+    assert set(kernels.launch_counts()) == {
+        "frontier_masks", "frontier_fused_masks", "frontier_deque_round",
+        "counting_spmm", "minplus_spmv"}
     assert _build._loaded == loaded        # nothing was built or loaded
     with pytest.raises(TypeError):
         fe.frontier_masks(paths.long(), begin, end, dst, meta, max_deg=1)
+    with pytest.raises(TypeError):
+        fe.frontier_fused_masks(paths, rank.long(), tv, dv, [begin], [end],
+                                [dst], max_deg=1)
+    with pytest.raises(ValueError):
+        fe.frontier_fused_masks(paths, rank, tv, dv, [begin], [], [dst],
+                                max_deg=1)
 
 
 def _run_smoke(cwd, env):

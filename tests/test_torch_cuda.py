@@ -179,3 +179,100 @@ def test_cuda_device_index_and_dp_equal_host(cuda):
                                  device=cuda)
     assert r_dev.stats == r_host.stats
     assert r_dev.as_tuples() == r_host.as_tuples()
+
+
+def _fused_inputs(dev, queries, depths, rows_each=5, seed=0):
+    """A packed fused hop over real indexes on ``dev``: one chunk per
+    member at its own depth (mixed k), plus PAD rows to a power of two."""
+    g = erdos_renyi(40, 5.0, seed=17)
+    idxs = [build_index(g, s, t, k, device=dev) for s, t, k in queries]
+    k1max = max(i.k for i in idxs) + 1
+    chunks, cnts = [], []
+    for idx, d in zip(idxs, depths):
+        paths = np.full((1, idx.k + 1), PAD, np.int32)
+        paths[0, 0] = idx.s
+        for dd in range(d):
+            parent, _pos, vnew, _emit, cont = _expand_chunk(
+                idx, paths, dd, EnumStats())
+            sel = np.nonzero(cont)[0]
+            paths = paths[parent[sel]].copy()
+            paths[:, dd + 1] = vnew[sel]
+        paths = paths[:rows_each]
+        last = paths[:, d].astype(np.int64)
+        cnts.append(idx.fwd_end[last, idx.k - d - 1] - idx.fwd_begin[last])
+        chunks.append(np.pad(paths, ((0, 0), (0, k1max - paths.shape[1])),
+                             constant_values=PAD))
+    packed = np.concatenate(chunks)
+    rank = np.concatenate([np.full(c.shape[0], i, np.int32)
+                           for i, c in enumerate(chunks)])
+    C = _next_pow2(max(packed.shape[0] + 3, 8))
+    pp = np.full((C, k1max), PAD, np.int32)
+    pp[:packed.shape[0]] = packed
+    rr = np.zeros(C, np.int32)
+    rr[:rank.shape[0]] = rank
+    max_deg = _next_pow2(max(int(np.concatenate(cnts).max()), 1))
+    devs = [i.device_arrays() for i in idxs]
+    args = (torch.from_numpy(pp).to(dev), torch.from_numpy(rr).to(dev),
+            torch.tensor([i.t for i in idxs], dtype=torch.int32).to(dev),
+            torch.tensor(depths, dtype=torch.int32).to(dev),
+            [d.begin for d in devs], [d.end for d in devs],
+            [d.dst for d in devs])
+    return args, max_deg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("queries,depths", [
+    ([(0, 39, 4)], [1]),
+    ([(0, 39, 4), (1, 38, 4), (2, 37, 3)], [0, 1, 2]),
+    ([(0, 39, 4), (1, 38, 5), (2, 37, 3), (3, 36, 4), (4, 35, 2)],
+     [2, 3, 1, 1, 0])])
+def test_cuda_frontier_fused_masks_equal_plain(cuda, queries, depths):
+    args, max_deg = _fused_inputs(cuda, queries, depths)
+    before = fe.fused_launches
+    got = fe.frontier_fused_masks(*args, max_deg=max_deg)
+    assert fe.fused_launches == before + 1
+    want = fe.frontier_fused_masks_plain(*args, max_deg=max_deg)
+    torch.cuda.synchronize()
+    for w, g_ in zip(want, got):
+        assert torch.equal(w, g_)
+    assert got[3].shape == (len(queries), 4) and int(got[3][:, 0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sharing", ["auto", "off"])
+def test_cuda_fused_batch_equals_solo(cuda, sharing):
+    """The batch engine on the card (fused K5 launches) against solo host
+    runs of the same indexes, item by item."""
+    from repro_torch.core import BatchPathEnum
+    g = erdos_renyi(40, 5.0, seed=17)
+    qs = [(0, 39, 4), (1, 38, 4), (2, 37, 3), (3, 36, 5), (0, 38, 4),
+          (1, 38, 4)]
+    eng = BatchPathEnum(chunk_size=7, sharing=sharing, device=cuda)
+    before = fe.fused_launches
+    for kw in ({"count_only": False}, {"count_only": False, "first_n": 3}):
+        out = eng.run(g, qs, mode="dfs", **kw)
+        assert out.fused_queries >= 2 and out.fused_dispatches >= 1
+        for item in out.items:
+            idx = build_index(g, item.s, item.t, item.k, device=cuda)
+            want = enumerate_paths_idx(idx, backend="host", chunk_size=7,
+                                       device=cuda, **kw)
+            got = item.result
+            assert got.count == want.count and got.stats == want.stats
+            assert got.as_tuples() == want.as_tuples()
+            assert got.exhausted == want.exhausted
+    assert fe.fused_launches > before
+
+
+@pytest.mark.cuda
+def test_cuda_stacked_bfs_equals_cpu(cuda):
+    from repro_torch.core import batched_index_distances
+    g = power_law(2000, 6.0, seed=3)
+    rng = np.random.default_rng(9)
+    qs = [(int(s), int(t), int(k)) for (s, t), k in
+          zip(rng.choice(g.n, (9, 2), replace=False),
+              rng.integers(2, 8, 9))]
+    got = batched_index_distances(g, qs, block=4, device=cuda)
+    want = batched_index_distances(g, qs, block=4, device="cpu")
+    for (a, b), (c, d) in zip(got, want):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, d)

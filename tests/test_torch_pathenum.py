@@ -17,6 +17,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core as rc
 import repro_torch.core as tc
@@ -24,6 +25,17 @@ from repro.core import clock as jclock
 from repro_torch.core import clock as tclock
 from repro_torch.core import enumerate as ten
 from repro_torch.kernels import ops as tops
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread per process keeps
+    parallel test workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 
 DP_FIELDS = ("c_to", "c_from", "q_prefix", "q_suffix")
 
