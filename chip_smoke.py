@@ -38,14 +38,40 @@ Phases, one JSON line each (``{"phase": ...}``):
    run on the same indexes (counts, paths, Fig.-6 stats, plans, DP
    tables), every batch item against a solo host run of its index, and
    the small graph's paths against the recursive oracle.
+7. ``kernel``  — the attention kernels K6 and K7 against their plain
+   versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
+   causal in float32 and bfloat16, windowed (2048), and with Lq < Lk; K7
+   over a long cache (B=16, S=32768, lengths from the seed in [S/2, S])
+   in float32 and bfloat16.  Each within its tolerance (2e-5 in float32,
+   2e-2 in bfloat16: the online softmax sums in another order), timed
+   beside its plain version, ``scaled_dot_product_attention`` as the
+   one-call yardstick, and its bound (bfloat16 operations over 989
+   TFLOP/s, float32 over 67).
+8. ``lm``      — the LM serving path at full width and depth:
+   ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
+   of 128, vocab 92544) in float32 with random weights from the seed.
+   ``make_prefill`` on 2 prompts of 2048 tokens (K6 in every layer), then
+   a ``ServeEngine`` with 8 slots and max_len 1024 serving 16 greedy
+   requests (prompts of 8–64 tokens, 32 new tokens each; K7 in every
+   layer of every step).  Then K6 and K7 are held against their plain
+   versions at the shapes this phase gave them (``kernel`` lines).
+9. ``lm_check`` — against the port's own plain path on the card, TF32
+   off: the prefill's last logits against ``forward(impl="xla")``; four
+   served requests teacher-forced through ``decode_step`` (K7), every
+   position's logits against ``forward(impl="xla")`` over the same
+   tokens; every served token equal to the plain argmax wherever the
+   plain top-two margin exceeds the tolerance (2e-3 on logits of order
+   1: float32 sums in other orders through 24 layers stay far below it,
+   a bfloat16 computation would not).
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 5.  Then K5 is held against its plain version at the shape of the
-fused leg's largest dispatch (a ``kernel`` line), and the script prints
-the ``kernels`` line, the card's name and power limit as nvidia-smi
-gives them, and, last, the ``ok`` line.  Any failed check exits non-zero
-before those lines.  Without a CUDA device, or outside a checkout, it
-exits non-zero at once.
+phase 5, and set to 0 again just before phase 8 and read just after it.
+K5 is held against its plain version at the shape of the fused leg's
+largest dispatch (a ``kernel`` line).  Last, the script prints the
+``kernels`` line (K1–K7), the card's name and power limit as nvidia-smi
+gives them, and the ``ok`` line.  Any failed check exits non-zero before
+those lines.  Without a CUDA device, or outside a checkout, it exits
+non-zero at once.
 """
 from __future__ import annotations
 
@@ -62,11 +88,21 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside MMA
+BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 MMA
 
 K_LARGE = 8
 TAU = 1e5
 CHUNK = 16384
 PICK_SECONDS = 150.0             # probe budget for the large queries
+
+PATHENUM_KERNELS = ("frontier_masks", "frontier_fused_masks",
+                    "frontier_deque_round", "counting_spmm", "minplus_spmv")
+LM_KERNELS = ("flash_attention", "decode_attention")
+# repro's own kernel tolerances (tests/test_kernels.py): the online
+# softmax sums in another order than one softmax over the row
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+LM_ARCH = "internlm2_1p8b"
+LM_TOL = 2e-3                    # logits of order 1, float32, 24 layers
 
 
 def fail(msg: str) -> None:
@@ -105,9 +141,10 @@ def time_ms(torch, fn, reps: int, warmup: int = 2, batches: int = 3
     return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -638,6 +675,358 @@ def check_phase(np, tc, large_runs, small_runs, g_small, dev):
                   f"{tag}: paths differ from the oracle")
 
 
+# ---------------------------------------------------------------------------
+# the LM attention kernels (K6, K7) and the LM serving path
+# ---------------------------------------------------------------------------
+
+def flash_work(np, B, Lq, Lk, H, Hkv, D, esize, window=None):
+    """Operations and bytes of one causal K6 call: 4·D·H operations per
+    visible (row, col) pair; q, k and v read once, the output written
+    once."""
+    rows = np.arange(Lq, dtype=np.int64) + (Lk - Lq)   # in key positions
+    hi = np.minimum(rows, Lk - 1) + 1
+    lo = np.maximum(rows - window + 1, 0) if window else 0
+    pairs = int(np.maximum(hi - lo, 0).sum())
+    ops = 4 * D * H * pairs * B
+    nbytes = esize * B * (2 * Lq * H * D + 2 * Lk * Hkv * D)
+    return ops, nbytes
+
+
+def decode_work(B, H, Hkv, D, esize, total_len):
+    """Operations and bytes of one K7 call: each row's first lengths[b]
+    cache positions of K and V read once (2·Σlengths·Hkv·D elements), q
+    read and the output written once, the lengths read; 4·Σlengths·H·D
+    operations."""
+    ops = 4 * total_len * H * D
+    nbytes = esize * (2 * total_len * Hkv * D + 2 * B * H * D) + 4 * B
+    return ops, nbytes
+
+
+def peak_for(torch, dtype):
+    return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+
+
+def attention_row(torch, run, plain, library, ops, nbytes, dtype, reps,
+                  shape):
+    """One attention kernel against its plain version: the largest
+    absolute error (checked against the tolerance of the type), times of
+    the kernel, the plain version and the one-call yardstick, and the
+    bound."""
+    tol = ATTN_TOL[str(dtype)]
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"{shape['kernel']}: non-finite "
+                                           f"output at {shape}")
+    err = max_abs_err(torch, [got], [want])
+    check(err <= tol, f"{shape['kernel']} differs from its plain version by "
+                      f"{err} > {tol} at {shape}")
+    del got, want
+    b_ms, b_by = bound(nbytes, ops, peak_for(torch, dtype))
+    return dict(max_abs_err=err, tol=tol,
+                ms=time_ms(torch, run, reps, warmup=1),
+                plain_ms=time_ms(torch, plain, max(1, reps // 2), warmup=1),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(torch, library, reps, warmup=1),
+                shape=shape)
+
+
+def flash_row(torch, np, kf, q, k, v, window=None, reps=5):
+    """K6 on (q, k, v), causal, against its plain version; the yardstick
+    is ``scaled_dot_product_attention`` with its own causal mask where
+    Lq == Lk and no window, else with the same boolean mask."""
+    F = torch.nn.functional
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if window is None and Lq == Lk:
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+    else:
+        rows = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+        cols = torch.arange(Lk, device=q.device)[None, :]
+        mask = rows >= cols
+        if window:
+            mask &= rows - cols < window
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  enable_gqa=True)
+    ops, nbytes = flash_work(np, B, Lq, Lk, H, Hkv, D, q.element_size(),
+                             window)
+    return attention_row(
+        torch, lambda: kf.flash_attention(q, k, v, window=window),
+        lambda: kf.flash_attention_plain(q, k, v, window=window), library,
+        ops, nbytes, q.dtype, reps,
+        dict(kernel="flash_attention", B=B, Lq=Lq, Lk=Lk, H=H, Hkv=Hkv, D=D,
+             window=window, dtype=str(q.dtype), causal=True))
+
+
+def decode_row(torch, kd, q, kc, vc, lengths, reps=10):
+    """K7 against its plain version; the yardstick is
+    ``scaled_dot_product_attention`` with a boolean length mask."""
+    F = torch.nn.functional
+    B, H, D = q.shape
+    S, Hkv = kc.shape[1], kc.shape[2]
+    qt = q[:, :, None]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    total = int(lengths.sum())
+    ops, nbytes = decode_work(B, H, Hkv, D, q.element_size(), total)
+    return attention_row(
+        torch, lambda: kd.decode_attention(q, kc, vc, lengths),
+        lambda: kd.decode_attention_plain(q, kc, vc, lengths),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               enable_gqa=True),
+        ops, nbytes, q.dtype, reps,
+        dict(kernel="decode_attention", B=B, S=S, H=H, Hkv=Hkv, D=D,
+             sum_lengths=total, dtype=str(q.dtype)))
+
+
+def attention_kernel_phase(torch, np, kf, kd, dev, seed):
+    """K6 and K7 at fixed shapes (``kernel`` lines): K6 at L = 4096 in
+    float32 and bfloat16, windowed and with Lq < Lk; K7 over a 32768-long
+    cache of 16 rows in float32 and bfloat16."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 6)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    B, L, H, Hkv, D = 1, 4096, 16, 8, 128
+    q, k, v = normal(B, L, H, D), normal(B, L, Hkv, D), normal(B, L, Hkv, D)
+    cases = [("causal_f32", (q, k, v), None),
+             ("causal_bf16", tuple(x.to(torch.bfloat16) for x in (q, k, v)),
+              None),
+             ("window_2048_f32", (q, k, v), 2048),
+             ("lq_1024_lk_4096_f32", (q[:, -1024:].contiguous(), k, v), None)]
+    for case, (qq, kk, vv), window in cases:
+        row = flash_row(torch, np, kf, qq, kk, vv, window=window)
+        emit({"phase": "kernel", "name": "flash_attention", "case": case,
+              **row})
+    del q, k, v, cases, qq, kk, vv
+    B, S = 16, 32768
+    rng = np.random.default_rng(seed + 7)
+    lengths = torch.from_numpy(rng.integers(S // 2, S + 1, B).astype(
+        np.int32)).to(dev)
+    q, kc, vc = normal(B, H, D), normal(B, S, Hkv, D), normal(B, S, Hkv, D)
+    for case, dtype in (("long_cache_f32", torch.float32),
+                        ("long_cache_bf16", torch.bfloat16)):
+        row = decode_row(torch, kd, q.to(dtype), kc.to(dtype), vc.to(dtype),
+                         lengths, reps=5)
+        emit({"phase": "kernel", "name": "decode_attention", "case": case,
+              **row})
+    del q, kc, vc
+    torch.cuda.empty_cache()
+
+
+def record_attention_calls(kf, kd, n_layers):
+    """Wrap the K6 and K7 wrappers (looked up at call time by the
+    attention layers) so the first K6 call's inputs, and (q, lengths) of
+    every decode step's first layer, are kept; returns the record and a
+    function that unwraps them."""
+    orig_f, orig_d = kf.flash_attention, kd.decode_attention
+    seen = {"flash": None, "decode": [], "decode_calls": 0}
+
+    def flash(q, k, v, **kw):
+        if seen["flash"] is None:
+            seen["flash"] = (q, k, v)
+        return orig_f(q, k, v, **kw)
+
+    def decode(q, kc, vc, lengths, **kw):
+        if seen["decode_calls"] % n_layers == 0:
+            seen["decode"].append((q, lengths))
+        seen["decode_calls"] += 1
+        return orig_d(q, kc, vc, lengths, **kw)
+
+    kf.flash_attention, kd.decode_attention = flash, decode
+
+    def restore():
+        kf.flash_attention, kd.decode_attention = orig_f, orig_d
+    return seen, restore
+
+
+def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
+             n_requests=16, slots=8, max_len=1024, max_tokens=32):
+    """The LM serving path: parameters, a timed prefill (after one
+    untimed call of the same shape) and a served batch of requests;
+    returns what the check and the kernel rows need, and the metrics."""
+    t0 = time.perf_counter()
+    params = tm.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = [params["embed"], params["final_norm"], params["head"]]
+    for blk in params["layers"]:
+        leaves += [blk["ln1"], blk["ln2"], *blk["attn"].values(),
+                   *blk["mlp"].values()]
+    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+
+    rng = np.random.default_rng(seed + 11)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len))
+                              ).to(dev)
+    prefill = step.make_prefill(cfg)
+    prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache, lengths = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    check(logits.shape == (2, 1, cfg.vocab) and cache["k"].shape
+          == (cfg.num_layers, 2, prompt_len, cfg.kv_heads, cfg.hd)
+          and lengths.tolist() == [prompt_len] * 2,
+          f"prefill shapes: {tuple(logits.shape)}, {tuple(cache['k'].shape)}")
+    del cache
+
+    eng = serving.ServeEngine(cfg, params, batch_slots=slots,
+                              max_len=max_len, temperature=0.0, seed=seed,
+                              device=dev)
+    # one batched step at the engine's shape first, so the timed run does
+    # not pay cuBLAS's first calls; admission resets every slot it fills
+    eng.step_fn(params, eng.cur_tok, eng.cache, eng.lens, eng.generator)
+    torch.cuda.synchronize()
+    reqs = [serving.Request(uid=i, prompt=rng.integers(
+        0, cfg.vocab, int(rng.integers(8, 65))).astype(np.int32),
+        max_tokens=max_tokens) for i in range(n_requests)]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    results = eng.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    generated = sum(len(v) for v in results.values())
+    replayed = sum(len(r.prompt) - 1 for r in reqs)
+    check(len(results) == n_requests and all(
+        len(v) == max_tokens for v in results.values()),
+        f"served {len(results)} requests, lengths "
+        f"{sorted(len(v) for v in results.values())}")
+    metrics = {"arch": cfg.name, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "heads": cfg.num_heads,
+          "kv_heads": cfg.kv_heads, "head_dim": cfg.hd, "vocab": cfg.vocab,
+          "dtype": str(params["embed"].dtype), "param_bytes": param_bytes,
+          "param_count": cfg.param_count() + cfg.d_model,
+          "init_s": init_s,
+          "prefill_batch": 2, "prefill_len": prompt_len,
+          "prefill_s": prefill_s,
+          "prefill_tokens_per_s": 2 * prompt_len / prefill_s,
+          "serve_slots": slots, "serve_max_len": max_len,
+          "cache_bytes": 2 * eng.cache["k"].numel()
+          * eng.cache["k"].element_size(),
+          "requests": n_requests, "prompt_tokens": replayed + n_requests,
+          "replay_steps": replayed, "steps_run": eng.steps_run,
+          "generated_tokens": generated, "serve_s": serve_s,
+          "decode_tokens_per_s": generated / serve_s,
+          "ms_per_engine_step": serve_s / (replayed + eng.steps_run) * 1e3,
+          "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
+    return dict(params=params, tokens=tokens, prefill_logits=logits,
+                reqs=reqs, results=results, engine=eng), metrics
+
+
+def device_busy(torch, fn, steps):
+    """``steps`` calls of ``fn`` timed on the host clock without a
+    profiler, then again under ``torch.profiler`` (CPU and CUDA
+    activity): the device's busy time in the traced window is the sum of
+    the durations of its kernels, memcpys and memsets.  Returns the two
+    walls, the busy time, its share of the unprofiled wall (None when the
+    trace holds no device activity) and the device operations per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_traced = time.perf_counter() - t0
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_s = sum(e.device_time_total for e in ops) * 1e-6
+    return {"steps": steps, "wall_ms_per_step": wall / steps * 1e3,
+            "traced_wall_ms_per_step": wall_traced / steps * 1e3,
+            "device_busy_ms_per_step": busy_s / steps * 1e3 if ops else None,
+            "device_busy_share": busy_s / wall if ops else None,
+            "device_ops_per_step": len(ops) / steps}
+
+
+def lm_kernel_rows(torch, np, kf, kd, seen, eng):
+    """K6 at the prefill's shape (its first layer's inputs) and K7 at the
+    engine's shape: the recorded decode call with the most cached
+    positions, over the engine's layer-0 cache."""
+    q, k, v = seen["flash"]
+    rows = {"flash_attention": flash_row(torch, np, kf, q, k, v)}
+    sums = torch.stack([lens for _, lens in seen["decode"]]).sum(1)
+    qd, lengths = seen["decode"][int(sums.argmax())]
+    rows["decode_attention"] = decode_row(
+        torch, kd, qd, eng.cache["k"][0], eng.cache["v"][0], lengths)
+    for name, row in rows.items():
+        emit({"phase": "kernel", "name": name, "case": "lm_phase", **row})
+    return rows
+
+
+def lm_check(torch, np, tm, cfg, run, dev, n_check=4):
+    """The LM path's logits against the port's plain path on the card."""
+    params, tokens = run["params"], run["tokens"]
+    plain, _ = tm.forward(params, cfg, {"tokens": tokens}, impl="xla")
+    got = run["prefill_logits"][:, 0]
+    check(bool(torch.isfinite(got).all()), "prefill: non-finite logits")
+    err_prefill = (got - plain[:, -1]).abs().max().item()
+    check(err_prefill <= LM_TOL, f"prefill logits differ from the plain "
+                                 f"forward by {err_prefill} > {LM_TOL}")
+    del plain
+    reqs = run["reqs"][:n_check]
+    out = run["results"]
+    seqs = [list(r.prompt) + out[r.uid][:-1] for r in reqs]
+    n_max = max(len(s) for s in seqs)
+    toks = np.zeros((len(seqs), n_max), np.int64)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    toks = torch.from_numpy(toks).to(dev)
+    cache = tm.init_cache(cfg, len(seqs), n_max, device=dev)
+    lens = torch.zeros(len(seqs), dtype=torch.int32, device=dev)
+    steps = []
+    with torch.no_grad():
+        for p in range(n_max):
+            lg, cache = tm.decode_step(params, cfg, toks[:, p], cache, lens,
+                                       impl="flash")
+            steps.append(lg)
+            lens = lens + 1
+    decoded = torch.stack(steps, 1)
+    del cache, steps
+    plain, _ = tm.forward(params, cfg, {"tokens": toks}, impl="xla")
+    err_decode, checked, ties = 0.0, 0, 0
+    for i, (r, s) in enumerate(zip(reqs, seqs)):
+        n, P = len(s), len(r.prompt)
+        check(bool(torch.isfinite(decoded[i, :n]).all()),
+              f"request {r.uid}: non-finite decode logits")
+        err_decode = max(err_decode,
+                         (decoded[i, :n] - plain[i, :n]).abs().max().item())
+        top = plain[i, P - 1:n].topk(2, dim=-1)
+        margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        best = top.indices[:, 0].cpu().numpy()
+        for j, tok in enumerate(out[r.uid]):
+            if margin[j] > LM_TOL:
+                check(tok == int(best[j]), f"request {r.uid} token {j}: "
+                      f"served {tok}, plain argmax {int(best[j])} with "
+                      f"margin {margin[j]}")
+                checked += 1
+            else:
+                ties += 1
+    check(err_decode <= LM_TOL, f"decode logits differ from the plain "
+                                f"forward by {err_decode} > {LM_TOL}")
+    emit({"phase": "lm_check", "ok": True, "tol": LM_TOL,
+          "tf32": bool(torch.backends.cuda.matmul.allow_tf32
+                       or torch.backends.cudnn.allow_tf32),
+          "prefill_max_abs_err": err_prefill,
+          "decode_max_abs_err": err_decode,
+          "decode_positions": sum(len(s) for s in seqs),
+          "greedy_tokens_checked": checked, "greedy_near_ties": ties})
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -669,6 +1058,12 @@ def main() -> None:
     from repro_torch.kernels import frontier_expand as fe
     from repro_torch.kernels import ops
     from repro_torch.kernels import semiring_spmm as sr
+    from repro_torch import serving
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import decode_attention as kd
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import transformer as tm
+    from repro_torch.training import step
 
     # yardsticks and the plain versions run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -726,10 +1121,51 @@ def main() -> None:
                                                     dev)
     check_phase(np, tc, large_runs, small_runs, g_small, dev)
     check_batch(tc, batch_runs, index_of, dev)
-    for name, n_launch in launches.items():
-        check(n_launch > 0, f"{name} never launched on the main path")
+    for name in PATHENUM_KERNELS:
+        check(launches[name] > 0, f"{name} never launched on the main path")
     emit({"phase": "check", "ok": True,
           "seconds": time.perf_counter() - t_start})
+    del large_runs, small_runs, batch_runs, index_of, largest, picks, shared
+    del queries, dg
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    attention_kernel_phase(torch, np, kf, kd, dev, args.seed)
+    attn_s = time.perf_counter() - t0
+
+    # the LM serving path: counts from 0, read right after
+    cfg = get_arch(LM_ARCH)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    seen, restore = record_attention_calls(kf, kd, cfg.num_layers)
+    try:
+        run, metrics = lm_phase(torch, np, tm, step, serving, cfg, dev,
+                                args.seed)
+        torch.cuda.synchronize()
+        lm_launches = kernels.launch_counts()
+    finally:
+        restore()
+    emit({"phase": "lm", **metrics,
+          "launches": {n: lm_launches[n] for n in LM_KERNELS},
+          "seconds": time.perf_counter() - t0,
+          "attention_kernel_s": attn_s})
+    for name in LM_KERNELS:
+        check(lm_launches[name] > 0, f"{name} never launched in the lm phase")
+    for name in PATHENUM_KERNELS:
+        check(lm_launches[name] == 0, f"{name} launched in the lm phase")
+    eng = run["engine"]
+    emit({"phase": "lm_trace", "what": "engine decode step, 8 slots",
+          **device_busy(torch, lambda: eng.step_fn(
+              run["params"], eng.cur_tok, eng.cache, eng.lens,
+              eng.generator), 5)})
+    rows.update(lm_kernel_rows(torch, np, kf, kd, seen, run["engine"]))
+    del seen
+    lm_check(torch, np, tm, cfg, run, dev)
+    del run
+    torch.cuda.empty_cache()
+    launches.update({n: lm_launches[n] for n in LM_KERNELS})
+    emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {
         "frontier_masks": ("src/repro_torch/kernels/csrc/frontier.cu",
@@ -743,6 +1179,11 @@ def main() -> None:
                           "src/repro/kernels/semiring_spmm.py:78"),
         "minplus_spmv": ("src/repro_torch/kernels/csrc/semiring.cu",
                          "src/repro/kernels/semiring_spmm.py:36"),
+        "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:27"),
+        "decode_attention": (
+            "src/repro_torch/kernels/csrc/decode_attention.cu",
+            "src/repro/kernels/decode_attention.py:25"),
     }
     line = []
     for name, (source, replaces) in where.items():

@@ -1,16 +1,20 @@
 """Hand-written CUDA kernels for Hopper and their plain PyTorch versions
-(the port of ``repro.kernels``' PathEnum kernels, DESIGN.md §9).
+(the port of ``repro.kernels``: the PathEnum kernels, DESIGN.md §9, and
+the LM attention kernels).
 
-frontier_expand — K1 and K5, the IDX-DFS frontier masks (single-query
-                  and fused over many queries)
-ops             — compaction, K2 (the resident work deque), the fused
-                  expand, bfs_dense
-semiring_spmm   — K3 counting SpMM and K4 min-plus SpMV
+decode_attention — K7, single-token attention over a KV cache
+flash_attention  — K6, blocked online-softmax attention
+frontier_expand  — K1 and K5, the IDX-DFS frontier masks (single-query
+                   and fused over many queries)
+ops              — compaction, K2 (the resident work deque), the fused
+                   expand, bfs_dense
+semiring_spmm    — K3 counting SpMM and K4 min-plus SpMV
 
 CUDA tensors launch the kernels (built from ``csrc/`` at first use by
 ``_build``); CPU tensors take the plain versions.
 """
-from . import frontier_expand, ops, semiring_spmm
+from . import (decode_attention, flash_attention, frontier_expand, ops,
+               semiring_spmm)
 
 
 def launch_counts() -> dict:
@@ -19,7 +23,9 @@ def launch_counts() -> dict:
             "frontier_fused_masks": frontier_expand.fused_launches,
             "frontier_deque_round": ops.deque_rounds,
             "counting_spmm": semiring_spmm.counting_launches,
-            "minplus_spmv": semiring_spmm.minplus_launches}
+            "minplus_spmv": semiring_spmm.minplus_launches,
+            "flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches}
 
 
 def reset_launch_counts() -> None:
@@ -29,3 +35,5 @@ def reset_launch_counts() -> None:
     ops.deque_rounds = 0
     semiring_spmm.counting_launches = 0
     semiring_spmm.minplus_launches = 0
+    flash_attention.launches = 0
+    decode_attention.launches = 0

@@ -27,6 +27,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # one shared library per source file
 SOURCES: Dict[str, str] = {
+    "decode_attention": "decode_attention.cu",
+    "flash_attention": "flash_attention.cu",
     "frontier": "frontier.cu",
     "frontier_fused": "frontier_fused.cu",
     "semiring": "semiring.cu",

@@ -1,0 +1,123 @@
+"""K6: blocked online-softmax (flash) attention with grouped KV heads.
+
+The counterpart of ``repro``'s Pallas kernel ``_flash_kernel``
+(``kernels/flash_attention.py``, wrapper ``ops.flash_attention``):
+q (B, Lq, H, D), k and v (B, Lk, Hkv, D), float32 or bfloat16, out
+(B, Lq, H, D) in q's type; KV head ``h // (H // Hkv)``; causal and
+sliding-window masks from global indices with the offset ``Lk - Lq``.
+
+The CUDA source is ``csrc/flash_attention.cu``; it says what bounds the
+kernel on the card.  A CUDA tensor launches it, whatever its lengths:
+the kernel masks ragged ``Lq``, ``Lk`` and ``Lq != Lk`` itself, so
+nothing falls back to a plain version (``repro``'s wrapper falls back to
+``ref.mha_ref`` for those because of the TPU's tile alignment).  A CPU
+tensor takes ``flash_attention_plain``, ``repro``'s ``ref.mha_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+# kernel launches since process start (chip_smoke.py resets and reads them)
+launches: int = 0
+
+HEAD_DIMS = (16, 32, 64, 128, 256)
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int | None = None,
+                          scale: float | None = None) -> torch.Tensor:
+    """Attention in plain PyTorch (``repro``'s ``ref.mha_ref``): the KV
+    heads repeated to H, float32 logits, a softmax, and P cast back to
+    v's type for the product."""
+    B, Lq, H, D = q.shape
+    Lk, Hkv = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    group = H // Hkv
+    kq = k.repeat_interleave(group, dim=2) if group > 1 else k
+    vq = v.repeat_interleave(group, dim=2) if group > 1 else v
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, kq).to(torch.float32) * scale
+    if causal:
+        qi = torch.arange(Lq, device=q.device)[:, None] + (Lk - Lq)
+        ki = torch.arange(Lk, device=q.device)[None, :]
+        mask = qi >= ki
+        if window is not None:
+            mask &= (qi - ki) < window
+        logits = logits.masked_fill(~mask, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(vq.dtype), vq)
+    return out.to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
+    """Raise unless the tensors share one device and one dtype (float32
+    or bfloat16), are contiguous, and the head dim is one the kernels
+    are built for.  Shared with K7's wrapper."""
+    first = next(iter(tensors.values()))
+    for arg, x in tensors.items():
+        if x.device != first.device:
+            raise ValueError(f"{name}: {arg} is on {x.device}, the others "
+                             f"on {first.device}")
+        if x.dtype != first.dtype:
+            raise TypeError(f"{name}: {arg} is {x.dtype}, the others "
+                            f"{first.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+    if first.dtype not in DTYPES:
+        raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
+                        f"{first.dtype}")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {head_dim} is not one of "
+                         f"{HEAD_DIMS}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    scale: float | None = None) -> torch.Tensor:
+    """q (B, Lq, H, D); k, v (B, Lk, Hkv, D); returns (B, Lq, H, D).
+
+    ``window`` (applied only when ``causal``) keeps the columns with
+    ``row + Lk - Lq - col < window``; ``scale`` defaults to
+    ``1 / sqrt(D)``."""
+    global launches
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"flash_attention: q must be (B, Lq, H, D) and k, v "
+                         f"(B, Lk, Hkv, D), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, Lq, H, D = q.shape
+    _, Lk, Hkv, _ = k.shape
+    if k.shape[0] != B or k.shape[3] != D or Hkv == 0 or H % Hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree (H must be a multiple "
+                         f"of Hkv)")
+    check_inputs("flash_attention", {"q": q, "k": k, "v": v}, D)
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    if not q.is_cuda:
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    out = torch.empty_like(q)
+    status = _lib().flash_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq, Lk,
+        H, Hkv, D, int(q.dtype == torch.bfloat16), scale, int(causal),
+        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention")
+    launches += 1
+    return out

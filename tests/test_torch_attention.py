@@ -1,0 +1,209 @@
+"""The port's attention kernels (plain versions, on the CPU) against
+``repro``'s: K6 ``flash_attention`` and K7 ``decode_attention``.
+
+The same numpy inputs, drawn from a seed, go through ``repro``'s Pallas
+kernels (interpret mode, through ``ops``), ``repro``'s references
+(``ref.mha_ref``, ``ref.decode_attention_ref``) and the port's wrappers,
+which on CPU tensors run their plain versions and count no launch.  The
+CUDA kernels themselves are held against these plain versions on the
+card by tests/test_torch_cuda.py and chip_smoke.py.
+
+Tolerances are ``repro``'s own (tests/test_kernels.py): 2e-5 in float32,
+because the online softmax sums in another order than one softmax over
+the row; 2e-2 in bfloat16, because the two frameworks round the bfloat16
+products and P at different places.  Inputs are O(1) normals.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops, ref
+from repro.models import attention as jattn
+from repro_torch import kernels
+from repro_torch.kernels import _build
+from repro_torch.kernels import decode_attention as kd
+from repro_torch.kernels import flash_attention as kf
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The tensors here are tiny: one intra-op thread per process keeps
+    parallel test workers from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _normals(seed, *shapes):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32) for s in shapes]
+
+
+def _both(arrays, dtype):
+    """The arrays as jax and torch tensors of ``dtype`` (bf16 rounding is
+    round-to-nearest-even in both, so the two sides get equal inputs)."""
+    j = [jnp.asarray(a, JDT[dtype]) for a in arrays]
+    t = [torch.from_numpy(a).to(TDT[dtype]) for a in arrays]
+    return j, t
+
+
+def _close(got_t, want_j, tol):
+    np.testing.assert_allclose(got_t.float().numpy(),
+                               np.asarray(want_j, np.float32), atol=tol,
+                               rtol=0)
+
+
+def _flash_inputs(seed, B, Lq, Lk, H, Hkv, D, dtype):
+    arrays = _normals(seed, (B, Lq, H, D), (B, Lk, Hkv, D), (B, Lk, Hkv, D))
+    return _both(arrays, dtype)
+
+
+# ---------------------------------------------------------------------------
+# K6
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("L,H,Hkv,D", [
+    (128, 4, 4, 16),     # group 1
+    (256, 8, 4, 32),     # group 2
+    (128, 8, 2, 64),     # group 4
+    (128, 8, 1, 128),    # group 8
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas_and_ref(L, H, Hkv, D, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(L + D, 2, L, L, H, Hkv, D,
+                                               dtype)
+    got = kf.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    if dtype == "float32":     # one interpret-mode compile per shape
+        _close(got, ops.flash_attention(jq, jk, jv, causal=True), TOL[dtype])
+    _close(got, ref.mha_ref(jq, jk, jv, causal=True), TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [32, 200])
+def test_flash_plain_window(window):
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(3, 1, 256, 256, 4, 2, 32,
+                                               "float32")
+    got = kf.flash_attention(tq, tk, tv, causal=True, window=window)
+    _close(got, ops.flash_attention(jq, jk, jv, causal=True, window=window),
+           TOL["float32"])
+    _close(got, ref.mha_ref(jq, jk, jv, causal=True, window=window),
+           TOL["float32"])
+
+
+@pytest.mark.parametrize("Lq,Lk,window", [
+    (100, 100, None),    # ragged, Lq == Lk: repro pads
+    (128, 256, None),    # Lq < Lk, tile-aligned: repro's kernel offsets rows
+    (37, 100, None),     # Lq < Lk, ragged: repro falls back to mha_ref
+    (64, 192, 48),       # Lq < Lk with a window
+])
+def test_flash_plain_ragged_and_offset(Lq, Lk, window):
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(Lq + Lk, 2, Lq, Lk, 4, 2, 32,
+                                               "float32")
+    got = kf.flash_attention(tq, tk, tv, causal=True, window=window)
+    _close(got, ops.flash_attention(jq, jk, jv, causal=True, window=window),
+           TOL["float32"])
+    _close(got, ref.mha_ref(jq, jk, jv, causal=True, window=window),
+           TOL["float32"])
+
+
+def test_flash_plain_not_causal_and_scale():
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(4, 1, 64, 96, 4, 1, 16,
+                                               "float32")
+    got = kf.flash_attention(tq, tk, tv, causal=False, scale=0.3)
+    _close(got, ref.mha_ref(jq, jk, jv, causal=False, scale=0.3),
+           TOL["float32"])
+
+
+# ---------------------------------------------------------------------------
+# K7
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("H,Hkv,D", [(8, 8, 16), (8, 2, 32), (8, 1, 64),
+                                     (16, 8, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_plain_matches_pallas_and_ref(H, Hkv, D, dtype):
+    B, S = 3, 777
+    arrays = _normals(H + D, (B, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, dtype)
+    lens = np.array([3, 500, 777], np.int32)
+    got = kd.decode_attention(tq, tk, tv, torch.from_numpy(lens))
+    assert got.dtype == TDT[dtype] and got.shape == tq.shape
+    jl = jnp.asarray(lens)
+    if dtype == "float32" and Hkv < H:     # one interpret compile per shape
+        _close(got, ops.decode_attention(jq, jk, jv, jl), TOL[dtype])
+    _close(got, ref.decode_attention_ref(jq, jk, jv, jl), TOL[dtype])
+
+
+# ---------------------------------------------------------------------------
+# the attention module's two paths
+# ---------------------------------------------------------------------------
+
+def test_xla_attention_matches_repro():
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(9, 2, 128, 128, 8, 2, 32,
+                                               "float32")
+    for window in (None, 16):
+        got = tattn._xla_attention(tq, tk, tv, causal=True, window=window,
+                                   q_chunk=32)
+        want = jattn._xla_attention(jq, jk, jv, causal=True, window=window,
+                                    q_chunk=32)
+        _close(got, want, TOL["float32"])
+        _close(got, ref.mha_ref(jq, jk, jv, causal=True, window=window),
+               TOL["float32"])
+
+
+def test_impl_default_and_values():
+    x = torch.zeros(1, 2, 4)
+    assert tattn.resolve_impl(None, x) == "xla"
+    assert tattn.resolve_impl("flash", x) == "flash"
+    with pytest.raises(ValueError):
+        tattn.resolve_impl("pallas", x)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: CPU tensors count no launch, bad inputs raise
+# ---------------------------------------------------------------------------
+
+def test_cpu_calls_count_no_launch_and_build_nothing():
+    kernels.reset_launch_counts()
+    loaded = dict(_build._loaded)
+    _, (tq, tk, tv) = _flash_inputs(5, 1, 16, 16, 2, 1, 16, "float32")
+    kf.flash_attention(tq, tk, tv)
+    kd.decode_attention(tq[:, 0].contiguous(), tk, tv,
+                        torch.tensor([7], dtype=torch.int32))
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 0 and counts["decode_attention"] == 0
+    assert _build._loaded == loaded
+
+
+def test_wrappers_reject_bad_inputs():
+    _, (tq, tk, tv) = _flash_inputs(6, 1, 16, 16, 2, 1, 48, "float32")
+    with pytest.raises(ValueError, match="head dim"):
+        kf.flash_attention(tq, tk, tv)
+    _, (tq, tk, tv) = _flash_inputs(6, 1, 16, 16, 2, 1, 32, "float32")
+    with pytest.raises(TypeError):
+        kf.flash_attention(tq, tk.to(torch.bfloat16), tv)
+    with pytest.raises(TypeError):
+        kf.flash_attention(tq.half(), tk.half(), tv.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        kf.flash_attention(tq.transpose(1, 2).contiguous().transpose(1, 2),
+                           tk, tv)
+    with pytest.raises(ValueError):
+        kf.flash_attention(tq, tk[:, :, :1].expand(1, 16, 3, 32).contiguous(),
+                           tv[:, :, :1].expand(1, 16, 3, 32).contiguous())
+    q1 = tq[:, 0].contiguous()
+    with pytest.raises(ValueError, match="lengths"):
+        kd.decode_attention(q1, tk, tv, torch.tensor([1.0]))
+    with pytest.raises(ValueError, match="head dim"):
+        kd.decode_attention(torch.zeros(1, 2, 8), torch.zeros(1, 4, 1, 8),
+                            torch.zeros(1, 4, 1, 8),
+                            torch.tensor([2], dtype=torch.int32))
+    with pytest.raises(TypeError):
+        kd.decode_attention(q1.to(torch.bfloat16), tk, tv,
+                            torch.tensor([2], dtype=torch.int32))

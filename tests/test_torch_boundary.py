@@ -2,8 +2,10 @@
 
 * ``src/repro_torch`` and ``chip_smoke.py`` import neither ``jax`` nor
   ``repro`` (an AST scan of every import statement).
-* The entry points default to ``device="cuda"``: without a CUDA device a
-  default call raises instead of running on the CPU.
+* The entry points (the PathEnum engines and the LM stack's parameters,
+  caches, serving engine and launcher) default to ``device="cuda"``:
+  without a CUDA device a default call raises instead of running on the
+  CPU.
 * A kernel wrapper given CPU tensors runs the plain version and counts
   no launch.
 * ``chip_smoke.py`` exits non-zero and prints no result without a CUDA
@@ -23,9 +25,14 @@ import torch
 
 import repro_torch.core as tc
 from repro_torch import kernels
+from repro_torch.configs import get_arch
 from repro_torch.kernels import _build
 from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import semiring_spmm as sr
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.models import (cache_from_numpy, init_cache, init_params,
+                                params_from_numpy)
+from repro_torch.serving import ServeEngine
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -119,7 +126,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
     assert set(kernels.launch_counts()) == {
         "frontier_masks", "frontier_fused_masks", "frontier_deque_round",
-        "counting_spmm", "minplus_spmv"}
+        "counting_spmm", "minplus_spmv", "flash_attention",
+        "decode_attention"}
     assert _build._loaded == loaded        # nothing was built or loaded
     with pytest.raises(TypeError):
         fe.frontier_masks(paths.long(), begin, end, dst, meta, max_deg=1)
@@ -129,6 +137,48 @@ def test_cpu_tensors_take_the_plain_versions():
     with pytest.raises(ValueError):
         fe.frontier_fused_masks(paths, rank, tv, dv, [begin], [], [dst],
                                 max_deg=1)
+
+
+def test_lm_entry_points_default_to_cuda():
+    """``init_params``, ``params_from_numpy``, ``init_cache``,
+    ``cache_from_numpy``, ``ServeEngine`` and the serve launcher run on
+    the card by default and raise without one."""
+    cfg = get_arch("internlm2_1p8b").reduced()
+    cpu = init_params(cfg, 0, device="cpu")
+    tree = {"embed": cpu["embed"].numpy(),
+            "final_norm": cpu["final_norm"].numpy(),
+            "head": cpu["head"].numpy(),
+            "supers": {"b0_attn": {
+                "ln1": np.stack([b["ln1"].numpy() for b in cpu["layers"]]),
+                "ln2": np.stack([b["ln2"].numpy() for b in cpu["layers"]]),
+                "attn": {n: np.stack([b["attn"][n].numpy()
+                                      for b in cpu["layers"]])
+                         for n in ("wq", "wk", "wv", "wo")},
+                "mlp": {n: np.stack([b["mlp"][n].numpy()
+                                     for b in cpu["layers"]])
+                        for n in ("w_gate", "w_up", "w_down")}}}}
+    shape = (cfg.num_layers, 1, 4, cfg.kv_heads, cfg.hd)
+    ctree = {"supers": {"b0_attn": (np.zeros(shape, np.float32),
+                                    np.zeros(shape, np.float32))}}
+    if torch.cuda.is_available():
+        params = params_from_numpy(cfg, tree)
+        assert params["embed"].is_cuda and init_params(cfg, 0)["embed"].is_cuda
+        assert init_cache(cfg, 1, 4)["k"].is_cuda
+        assert cache_from_numpy(cfg, ctree)["v"].is_cuda
+        assert ServeEngine(cfg, params).cache["k"].is_cuda
+        return
+    for call in (lambda: init_params(cfg, 0),
+                 lambda: params_from_numpy(cfg, tree),
+                 lambda: init_cache(cfg, 1, 4),
+                 lambda: cache_from_numpy(cfg, ctree),
+                 lambda: ServeEngine(cfg, cpu),
+                 lambda: serve_main(["--requests", "1"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    back = params_from_numpy(cfg, tree, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(
+        (back["embed"], back["layers"][2]["mlp"]["w_up"]),
+        (cpu["embed"], cpu["layers"][2]["mlp"]["w_up"])))
 
 
 def _run_smoke(cwd, env):

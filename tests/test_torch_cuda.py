@@ -4,9 +4,12 @@ A CUDA kernel has no interpreter, so these tests need a CUDA device and
 skip without one (the decision is made inside the ``cuda`` fixture).
 They import only ``repro_torch`` (the machine with the card has no JAX):
 run them there with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
-Every compared value is an integer or a float32 holding a small integer,
-so equality is exact.  The plain versions themselves are held against
-the JAX package's Pallas kernels by tests/test_torch_kernels.py.
+The PathEnum kernels' values are integers or float32s holding small
+integers, so equality is exact.  The attention kernels K6 and K7 are
+held within ``repro``'s own tolerances, 2e-5 in float32 (the online
+softmax sums in another order) and 2e-2 in bfloat16, on O(1) inputs.
+The plain versions themselves are held against the JAX package's Pallas
+kernels by tests/test_torch_kernels.py and tests/test_torch_attention.py.
 """
 import numpy as np
 import pytest
@@ -15,10 +18,15 @@ import torch
 from repro_torch.core import (PathEnum, build_index, build_index_device,
                               enumerate_paths_idx, erdos_renyi, power_law,
                               random_graph_suite, walk_count_dp)
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.enumerate import EnumStats, _expand_chunk
+from repro_torch.kernels import decode_attention as kd
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import frontier_expand as fe
 from repro_torch.kernels import ops
 from repro_torch.kernels import semiring_spmm as sr
+from repro_torch.models import transformer as ttf
+from repro_torch.serving import Request, ServeEngine
 
 PAD = -1
 
@@ -276,3 +284,155 @@ def test_cuda_stacked_bfs_equals_cpu(cuda):
     for (a, b), (c, d) in zip(got, want):
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(b, d)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7, the LM attention kernels
+# ---------------------------------------------------------------------------
+
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _normal(shape, seed, dtype, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    return x.to(device=device, dtype=dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,D,window", [
+    (2, 100, 100, 4, 2, 32, None),      # ragged
+    (1, 64, 200, 8, 1, 64, None),       # Lq < Lk, ragged Lk
+    (1, 257, 257, 16, 8, 128, 64),      # window, ragged
+    (2, 130, 130, 4, 4, 256, None),     # D = 256
+    (1, 33, 90, 2, 1, 16, 8),           # Lq < Lk with a window
+    (1, 512, 512, 16, 8, 128, None),    # tile-aligned, engine-like GQA
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_equals_plain(cuda, B, Lq, Lk, H, Hkv, D,
+                                           window, dtype):
+    q = _normal((B, Lq, H, D), 1, dtype, cuda)
+    k = _normal((B, Lk, Hkv, D), 2, dtype, cuda)
+    v = _normal((B, Lk, Hkv, D), 3, dtype, cuda)
+    before = kf.launches
+    got = kf.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    want = kf.flash_attention_plain(q, k, v, causal=True, window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_not_causal(cuda):
+    q = _normal((2, 70, 4, 64), 4, torch.float32, cuda)
+    k = _normal((2, 150, 2, 64), 5, torch.float32, cuda)
+    v = _normal((2, 150, 2, 64), 6, torch.float32, cuda)
+    got = kf.flash_attention(q, k, v, causal=False, scale=0.2)
+    want = kf.flash_attention_plain(q, k, v, causal=False, scale=0.2)
+    assert (got - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,lens", [
+    (3, 777, 8, 2, 32, [3, 500, 777]),
+    (2, 1024, 16, 8, 128, [1, 1000]),
+    (4, 300, 8, 8, 16, [300, 17, 64, 299]),
+    (2, 129, 16, 1, 256, [129, 33]),
+    (1, 5000, 4, 2, 64, [4999]),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_equals_plain(cuda, B, S, H, Hkv, D, lens,
+                                            dtype):
+    q = _normal((B, H, D), 7, dtype, cuda)
+    kc = _normal((B, S, Hkv, D), 8, dtype, cuda)
+    vc = _normal((B, S, Hkv, D), 9, dtype, cuda)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = kd.launches
+    got = kd.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1
+    want = kd.decode_attention_plain(q, kc, vc, lengths)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], err
+
+
+@pytest.mark.cuda
+def test_cuda_decode_attention_empty_row_is_zero(cuda):
+    q = _normal((2, 4, 32), 1, torch.float32, cuda)
+    kc = _normal((2, 50, 2, 32), 2, torch.float32, cuda)
+    lengths = torch.tensor([0, 50], dtype=torch.int32, device=cuda)
+    got = kd.decode_attention(q, kc, kc, lengths)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = kd.decode_attention_plain(q[1:], kc[1:], kc[1:], lengths[1:])
+    assert (got[1:] - want).abs().max().item() <= ATTN_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_cuda_attention_wrappers_raise(cuda):
+    q = _normal((1, 16, 2, 48), 1, torch.float32, cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        kf.flash_attention(q, q[:, :, :1].contiguous(),
+                           q[:, :, :1].contiguous())
+    q = _normal((1, 16, 2, 32), 1, torch.float32, cuda)
+    k = q[:, :, :1].contiguous()
+    with pytest.raises(TypeError):
+        kf.flash_attention(q, k.to(torch.bfloat16), k)
+    with pytest.raises(TypeError):
+        kf.flash_attention(q.half(), k.half(), k.half())
+    with pytest.raises(ValueError):
+        kf.flash_attention(q, k.cpu(), k)
+    lengths = torch.tensor([16], dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kd.decode_attention(q[:, 0].contiguous(), k.double(), k.double(),
+                            lengths)
+    with pytest.raises(ValueError):
+        kd.decode_attention(q[:, 0].contiguous(), k, k, lengths.cpu())
+
+
+TINY = ArchConfig(name="tiny_serve", family="dense", num_layers=2,
+                  d_model=64, num_heads=4, kv_heads=2, d_ff=128, vocab=97,
+                  head_dim=16, attn_chunk=16, tie_embeddings=True)
+
+
+@pytest.mark.cuda
+def test_cuda_lm_path_launches_per_layer_and_equals_plain(cuda):
+    params = ttf.init_params(TINY, 0, device=cuda)
+    toks = torch.tensor([[5, 9, 13, 2, 7, 40]], device=cuda)
+    before = kf.launches
+    logits, cache, lens = ttf.prefill(params, TINY, {"tokens": toks})
+    assert kf.launches == before + TINY.num_layers
+    plain, _ = ttf.forward(params, TINY, {"tokens": toks}, impl="xla")
+    assert (logits[:, 0] - plain[:, -1]).abs().max().item() < 2e-3
+    big = ttf.init_cache(TINY, 1, 16, device=cuda)
+    big["k"][:, :, :6] = cache["k"]
+    big["v"][:, :, :6] = cache["v"]
+    before = kd.launches
+    lg, big = ttf.decode_step(params, TINY, torch.tensor([41], device=cuda),
+                              big, lens)
+    assert kd.launches == before + TINY.num_layers
+    full, _ = ttf.forward(params, TINY, {"tokens": torch.cat(
+        [toks, torch.tensor([[41]], device=cuda)], 1)}, impl="xla")
+    assert (lg - full[:, -1]).abs().max().item() < 2e-3
+
+
+@pytest.mark.cuda
+def test_cuda_serve_engine_equals_cpu(cuda):
+    params = ttf.init_params(TINY, 1, device="cpu")
+    on_card = {k: v for k, v in params.items() if k != "layers"}
+    on_card = {k: v.to(cuda) for k, v in on_card.items()}
+    on_card["layers"] = [{k: ({n: w.to(cuda) for n, w in v.items()}
+                              if isinstance(v, dict) else v.to(cuda))
+                          for k, v in blk.items()}
+                         for blk in params["layers"]]
+    prompts = [[5, 9, 13], [2, 7], [40, 41, 42, 43], [3]]
+    outs = []
+    for p, dev in ((params, "cpu"), (on_card, cuda)):
+        eng = ServeEngine(TINY, p, batch_slots=2, max_len=32, device=dev)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=np.asarray(pr, np.int32),
+                               max_tokens=6))
+        outs.append((eng.run(), eng.steps_run))
+    assert outs[0] == outs[1]
