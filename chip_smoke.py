@@ -40,13 +40,19 @@ Phases, one JSON line each (``{"phase": ...}``):
    the small graph's paths against the recursive oracle.
 7. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
-   causal in float32 and bfloat16, windowed (2048), and with Lq < Lk; K7
+   causal, windowed (2048), and with Lq < Lk, each in float32 (the SIMT
+   kernel) and bfloat16 (the wgmma kernel); K7
    over a long cache (B=16, S=32768, lengths from the seed in [S/2, S])
    in float32 and bfloat16.  Each within its tolerance (2e-5 in float32,
-   2e-2 in bfloat16: the online softmax sums in another order), timed
-   beside its plain version, ``scaled_dot_product_attention`` as the
-   one-call yardstick, and its bound (bfloat16 operations over 989
-   TFLOP/s, float32 over 67).
+   2e-2 in bfloat16: the online softmax sums in another order; bfloat16
+   also within 2^-4 of |want| + the rms of want's row, element by
+   element, ``scaled_err``, and on that measure no further from the
+   plain version in float32 than 1.5 times the plain bfloat16 version
+   is), timed
+   (``ms`` per call as a caller sees it, ``device_ms`` the card's part
+   with the launches queued ahead) beside its plain version,
+   ``scaled_dot_product_attention`` as the one-call yardstick, and its
+   bound (bfloat16 operations over 989 TFLOP/s, float32 over 67).
 8. ``lm``      — the LM serving path at full width and depth:
    ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
    of 128, vocab 92544) in float32 with random weights from the seed.
@@ -63,13 +69,23 @@ Phases, one JSON line each (``{"phase": ...}``):
    plain top-two margin exceeds the tolerance (2e-3 on logits of order
    1: float32 sums in other orders through 24 layers stay far below it,
    a bfloat16 computation would not).
+10. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
+   bfloat16 cache: the same prefill and the same 16 requests, with its
+   own ``lm_bf16_trace`` and K6/K7 ``kernel`` lines at its shapes (K6 on
+   the wgmma kernel, K7 in bfloat16).
+11. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
+   kernels and from ``forward(impl="xla")`` in bfloat16, each against
+   the float32 plain path on the same bfloat16-rounded weights: the
+   kernels' error may be at most 1.5 times the plain path's.  Both
+   errors are printed, and K6's share of the prefill.
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 5, and set to 0 again just before phase 8 and read just after it.
-K5 is held against its plain version at the shape of the fused leg's
-largest dispatch (a ``kernel`` line).  Last, the script prints the
-``kernels`` line (K1–K7), the card's name and power limit as nvidia-smi
-gives them, and the ``ok`` line.  Any failed check exits non-zero before
+phase 5, and set to 0 again just before phase 8 and just before phase
+10, each read just after its phase.  K5 is held against its plain
+version at the shape of the fused leg's largest dispatch (a ``kernel``
+line).  Last, the script prints the ``kernels`` line (K1–K7, K6 as its
+two kernels), the card's name and power limit as nvidia-smi gives them,
+and the ``ok`` line.  Any failed check exits non-zero before
 those lines.  Without a CUDA device, or outside a checkout, it exits
 non-zero at once.
 """
@@ -98,11 +114,24 @@ PICK_SECONDS = 150.0             # probe budget for the large queries
 PATHENUM_KERNELS = ("frontier_masks", "frontier_fused_masks",
                     "frontier_deque_round", "counting_spmm", "minplus_spmv")
 LM_KERNELS = ("flash_attention", "decode_attention")
+LM_BF16_KERNELS = ("flash_attention_sm90", "decode_attention")
 # repro's own kernel tolerances (tests/test_kernels.py): the online
 # softmax sums in another order than one softmax over the row
 ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
+# bfloat16 also holds each element to its own size: |got - want| at most
+# this fraction of |want| + the rms of want's row (over D).  The absolute
+# 2e-2 alone is twice a typical output over a long row (about 0.01), so
+# it could not see a dropped chunk or KV tile (0.9 or more on this
+# measure).  The plain versions round their logits to bfloat16 and the
+# kernels do not, which alone puts them up to about 0.03 apart; against
+# the plain version in float32 the kernel's error, on the same measure,
+# may be at most BF16_ERR_RATIO times the plain bfloat16 version's
+ATTN_REL_TOL = {"torch.bfloat16": 2.0 ** -4}
 LM_ARCH = "internlm2_1p8b"
 LM_TOL = 2e-3                    # logits of order 1, float32, 24 layers
+# the bfloat16 leg: K6/K7's logit error against the float32 plain path
+# may be at most this multiple of the plain bfloat16 path's error
+BF16_ERR_RATIO = 1.5
 
 
 def fail(msg: str) -> None:
@@ -146,6 +175,22 @@ def bound(nbytes: float, ops: float, peak: float = FP32_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scaled_err(torch, got, want) -> float:
+    """Largest |got - want| / (|want| + rms of want's row over the last
+    dimension): an error in units of the element's own size, which no
+    row's smallness hides.  Rows where the plain version is not finite
+    (K7's length-0 rows: NaN there, zeros from the kernel) are left
+    out."""
+    if not want.numel():
+        return 0.0
+    w = want.double()
+    ok = torch.isfinite(w).all(-1, keepdim=True)
+    w = torch.where(ok, w, 0.0)
+    d = torch.where(ok, (got.double() - w).abs(), 0.0)
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    return (d / (w.abs() + rms).clamp_min(1e-30)).max().item()
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -706,11 +751,33 @@ def peak_for(torch, dtype):
     return BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
 
 
+def device_ms(torch, fn, reps: int) -> float:
+    """Milliseconds of device time per call of ``fn``: the card first
+    spins for about 10 ms (``torch.cuda._sleep``) while the host queues
+    ``reps`` calls behind it, so CUDA events around the calls time the
+    card alone, without the host's launch cost."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
 def attention_row(torch, run, plain, library, ops, nbytes, dtype, reps,
-                  shape):
+                  shape, exact):
     """One attention kernel against its plain version: the largest
-    absolute error (checked against the tolerance of the type), times of
-    the kernel, the plain version and the one-call yardstick, and the
+    absolute error (checked against the tolerance of the type; in
+    bfloat16 also the error scaled by each element's size, and the
+    kernel's and the plain version's scaled errors against ``exact``,
+    the plain version in float32 on the same inputs), times of
+    the kernel (per call as a caller sees it, and the device's share of
+    that), the plain version and the one-call yardstick, and the
     bound."""
     tol = ATTN_TOL[str(dtype)]
     got, want = run(), plain()
@@ -720,10 +787,28 @@ def attention_row(torch, run, plain, library, ops, nbytes, dtype, reps,
     err = max_abs_err(torch, [got], [want])
     check(err <= tol, f"{shape['kernel']} differs from its plain version by "
                       f"{err} > {tol} at {shape}")
+    rel = {}
+    rel_tol = ATTN_REL_TOL.get(str(dtype))
+    if rel_tol is not None:
+        e = scaled_err(torch, got, want)
+        check(e <= rel_tol, f"{shape['kernel']} differs from its plain "
+                            f"version by {e} of |want| + its row's rms > "
+                            f"{rel_tol} at {shape}")
+        ref = exact()
+        e_k = scaled_err(torch, got.float(), ref)
+        e_p = scaled_err(torch, want.float(), ref)
+        check(e_k <= BF16_ERR_RATIO * e_p,
+              f"{shape['kernel']}: its error against float32, {e_k}, is "
+              f"over {BF16_ERR_RATIO} x the plain version's {e_p} at "
+              f"{shape}")
+        rel = dict(scaled_err=e, scaled_tol=rel_tol, scaled_err_vs_f32=e_k,
+                   plain_scaled_err_vs_f32=e_p)
+        del ref
     del got, want
     b_ms, b_by = bound(nbytes, ops, peak_for(torch, dtype))
-    return dict(max_abs_err=err, tol=tol,
+    return dict(max_abs_err=err, tol=tol, **rel,
                 ms=time_ms(torch, run, reps, warmup=1),
+                device_ms=device_ms(torch, run, reps),
                 plain_ms=time_ms(torch, plain, max(1, reps // 2), warmup=1),
                 bound_ms=b_ms, bound_by=b_by,
                 library_ms=time_ms(torch, library, reps, warmup=1),
@@ -759,7 +844,9 @@ def flash_row(torch, np, kf, q, k, v, window=None, reps=5):
         lambda: kf.flash_attention_plain(q, k, v, window=window), library,
         ops, nbytes, q.dtype, reps,
         dict(kernel="flash_attention", B=B, Lq=Lq, Lk=Lk, H=H, Hkv=Hkv, D=D,
-             window=window, dtype=str(q.dtype), causal=True))
+             window=window, dtype=str(q.dtype), causal=True),
+        lambda: kf.flash_attention_plain(q.float(), k.float(), v.float(),
+                                         window=window))
 
 
 def decode_row(torch, kd, q, kc, vc, lengths, reps=10):
@@ -781,7 +868,9 @@ def decode_row(torch, kd, q, kc, vc, lengths, reps=10):
                                                enable_gqa=True),
         ops, nbytes, q.dtype, reps,
         dict(kernel="decode_attention", B=B, S=S, H=H, Hkv=Hkv, D=D,
-             sum_lengths=total, dtype=str(q.dtype)))
+             sum_lengths=total, dtype=str(q.dtype)),
+        lambda: kd.decode_attention_plain(q.float(), kc.float(), vc.float(),
+                                          lengths))
 
 
 def attention_kernel_phase(torch, np, kf, kd, dev, seed):
@@ -801,11 +890,15 @@ def attention_kernel_phase(torch, np, kf, kd, dev, seed):
               None),
              ("window_2048_f32", (q, k, v), 2048),
              ("lq_1024_lk_4096_f32", (q[:, -1024:].contiguous(), k, v), None)]
+    q16, k16, v16 = (x.to(torch.bfloat16) for x in (q, k, v))
+    cases += [("window_2048_bf16", (q16, k16, v16), 2048),
+              ("lq_1024_lk_4096_bf16", (q16[:, -1024:].contiguous(), k16,
+                                        v16), None)]
     for case, (qq, kk, vv), window in cases:
         row = flash_row(torch, np, kf, qq, kk, vv, window=window)
         emit({"phase": "kernel", "name": "flash_attention", "case": case,
               **row})
-    del q, k, v, cases, qq, kk, vv
+    del q, k, v, q16, k16, v16, cases, qq, kk, vv
     B, S = 16, 32768
     rng = np.random.default_rng(seed + 7)
     lengths = torch.from_numpy(rng.integers(S // 2, S + 1, B).astype(
@@ -848,12 +941,15 @@ def record_attention_calls(kf, kd, n_layers):
 
 
 def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
-             n_requests=16, slots=8, max_len=1024, max_tokens=32):
-    """The LM serving path: parameters, a timed prefill (after one
-    untimed call of the same shape) and a served batch of requests;
-    returns what the check and the kernel rows need, and the metrics."""
+             n_requests=16, slots=8, max_len=1024, max_tokens=32,
+             params=None):
+    """The LM serving path: parameters (random from the seed unless
+    given), a timed prefill (after one untimed call of the same shape)
+    and a served batch of requests; returns what the check and the kernel
+    rows need, and the metrics."""
     t0 = time.perf_counter()
-    params = tm.init_params(cfg, seed, device=dev)
+    if params is None:
+        params = tm.init_params(cfg, seed, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     leaves = [params["embed"], params["final_norm"], params["head"]]
@@ -919,7 +1015,8 @@ def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
           "ms_per_engine_step": serve_s / (replayed + eng.steps_run) * 1e3,
           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
     return dict(params=params, tokens=tokens, prefill_logits=logits,
-                reqs=reqs, results=results, engine=eng), metrics
+                prefill_s=prefill_s, reqs=reqs, results=results,
+                engine=eng), metrics
 
 
 def device_busy(torch, fn, steps):
@@ -953,7 +1050,7 @@ def device_busy(torch, fn, steps):
             "device_ops_per_step": len(ops) / steps}
 
 
-def lm_kernel_rows(torch, np, kf, kd, seen, eng):
+def lm_kernel_rows(torch, np, kf, kd, seen, eng, case="lm_phase"):
     """K6 at the prefill's shape (its first layer's inputs) and K7 at the
     engine's shape: the recorded decode call with the most cached
     positions, over the engine's layer-0 cache."""
@@ -964,7 +1061,7 @@ def lm_kernel_rows(torch, np, kf, kd, seen, eng):
     rows["decode_attention"] = decode_row(
         torch, kd, qd, eng.cache["k"][0], eng.cache["v"][0], lengths)
     for name, row in rows.items():
-        emit({"phase": "kernel", "name": name, "case": "lm_phase", **row})
+        emit({"phase": "kernel", "name": name, "case": case, **row})
     return rows
 
 
@@ -1025,6 +1122,42 @@ def lm_check(torch, np, tm, cfg, run, dev, n_check=4):
           "decode_max_abs_err": err_decode,
           "decode_positions": sum(len(s) for s in seqs),
           "greedy_tokens_checked": checked, "greedy_near_ties": ties})
+
+
+def cast_params(tree, dtype):
+    """The parameter tree with every tensor cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: cast_params(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [cast_params(v, dtype) for v in tree]
+    return tree.to(dtype)
+
+
+def lm_bf16_check(torch, tm, cfg, run, prefill_k6_ms):
+    """The bfloat16 leg's prefill logits, from K6 and from the plain path
+    (``forward(impl="xla")``) in bfloat16, each against the float32 plain
+    path on the same bfloat16-rounded weights: the kernels' error may be
+    at most ``BF16_ERR_RATIO`` times the plain bfloat16 path's."""
+    params, tokens = run["params"], run["tokens"]
+    got = run["prefill_logits"][:, 0].float()
+    check(bool(torch.isfinite(got).all()), "bf16 prefill: non-finite logits")
+    plain, _ = tm.forward(params, cfg, {"tokens": tokens}, impl="xla")
+    plain = plain[:, -1].float()
+    ref_params = cast_params(params, torch.float32)
+    ref, _ = tm.forward(ref_params, cfg, {"tokens": tokens}, impl="xla")
+    ref = ref[:, -1]
+    del ref_params
+    err_kernels = (got - ref).abs().max().item()
+    err_plain = (plain - ref).abs().max().item()
+    check(err_kernels <= BF16_ERR_RATIO * err_plain,
+          f"bf16 prefill logits: the kernels' error {err_kernels} exceeds "
+          f"{BF16_ERR_RATIO} x the plain bf16 path's {err_plain}")
+    emit({"phase": "lm_bf16_check", "ok": True, "ratio_limit": BF16_ERR_RATIO,
+          "kernels_max_abs_err_vs_f32": err_kernels,
+          "plain_bf16_max_abs_err_vs_f32": err_plain,
+          "kernels_vs_plain_bf16": (got - plain).abs().max().item(),
+          "prefill_k6_share": cfg.num_layers * prefill_k6_ms
+          / (run["prefill_s"] * 1e3)})
 
 
 def main() -> None:
@@ -1152,7 +1285,7 @@ def main() -> None:
           "attention_kernel_s": attn_s})
     for name in LM_KERNELS:
         check(lm_launches[name] > 0, f"{name} never launched in the lm phase")
-    for name in PATHENUM_KERNELS:
+    for name in PATHENUM_KERNELS + ("flash_attention_sm90",):
         check(lm_launches[name] == 0, f"{name} launched in the lm phase")
     eng = run["engine"]
     emit({"phase": "lm_trace", "what": "engine decode step, 8 slots",
@@ -1162,9 +1295,48 @@ def main() -> None:
     rows.update(lm_kernel_rows(torch, np, kf, kd, seen, run["engine"]))
     del seen
     lm_check(torch, np, tm, cfg, run, dev)
+    launches.update({n: lm_launches[n] for n in LM_KERNELS})
+
+    # the same weights and requests in bfloat16: counts from 0, read right
+    # after
+    params16 = cast_params(run["params"], torch.bfloat16)
+    del run, eng
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    seen, restore = record_attention_calls(kf, kd, cfg.num_layers)
+    try:
+        run, metrics = lm_phase(torch, np, tm, step, serving, cfg, dev,
+                                args.seed, params=params16)
+        torch.cuda.synchronize()
+        bf16_launches = kernels.launch_counts()
+    finally:
+        restore()
+    del params16
+    emit({"phase": "lm_bf16", **metrics,
+          "launches": {n: bf16_launches[n] for n in
+                       ("flash_attention",) + LM_BF16_KERNELS},
+          "seconds": time.perf_counter() - t0})
+    for name in LM_BF16_KERNELS:
+        check(bf16_launches[name] > 0,
+              f"{name} never launched in the bf16 lm phase")
+    for name in PATHENUM_KERNELS + ("flash_attention",):
+        check(bf16_launches[name] == 0,
+              f"{name} launched in the bf16 lm phase")
+    eng = run["engine"]
+    emit({"phase": "lm_bf16_trace", "what": "engine decode step, 8 slots",
+          **device_busy(torch, lambda: eng.step_fn(
+              run["params"], eng.cur_tok, eng.cache, eng.lens,
+              eng.generator), 5)})
+    rows16 = lm_kernel_rows(torch, np, kf, kd, seen, eng,
+                            case="lm_bf16_phase")
+    rows["flash_attention_sm90"] = rows16["flash_attention"]
+    del seen, eng
+    lm_bf16_check(torch, tm, cfg, run, rows16["flash_attention"]["ms"])
     del run
     torch.cuda.empty_cache()
-    launches.update({n: lm_launches[n] for n in LM_KERNELS})
+    launches["flash_attention_sm90"] = bf16_launches["flash_attention_sm90"]
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {
@@ -1181,6 +1353,9 @@ def main() -> None:
                          "src/repro/kernels/semiring_spmm.py:36"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:27"),
+        "flash_attention_sm90": (
+            "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
+            "src/repro/kernels/flash_attention.py:27"),
         "decode_attention": (
             "src/repro_torch/kernels/csrc/decode_attention.cu",
             "src/repro/kernels/decode_attention.py:25"),

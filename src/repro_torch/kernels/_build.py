@@ -4,9 +4,12 @@ Each source compiles with ``nvcc`` into its own shared library with a
 plain C interface, loaded through ctypes.  Libraries land in ``build/``
 beside this file (git-ignored), named by a hash of the source text and
 the flags, so an edited source is rebuilt and an unchanged one is
-reused.  Every source that is not built yet is compiled at once, one
-``nvcc`` process each, on first use.  A failed build raises: no caller
-falls back to a kernel's plain version because its library is missing.
+reused.  The hash covers every header in ``csrc/`` too (the ``*.cuh``
+files the sources include), so an edited header cannot leave a stale
+library behind.  Every source that is not built yet is compiled at
+once, one ``nvcc`` process each, on first use.  A failed build raises:
+no caller falls back to a kernel's plain version because its library is
+missing.
 
 Nothing here runs at import time; the CPU tests import every module of
 the package on machines without ``nvcc``.
@@ -29,6 +32,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
     "frontier": "frontier.cu",
     "frontier_fused": "frontier_fused.cu",
     "semiring": "semiring.cu",
@@ -56,8 +60,10 @@ def nvcc_path() -> str:
 
 def lib_path(name: str) -> Path:
     """Where the library of source ``name`` is (or will be) built."""
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / SOURCES[name]).read_bytes()
+    for header in sorted(CSRC.glob("*.cuh")):
+        text += header.name.encode() + header.read_bytes()
+    digest = hashlib.sha1(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
 
 

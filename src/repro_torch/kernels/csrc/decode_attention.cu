@@ -13,185 +13,356 @@
 // KV group, about G/2 operations per byte in float32 -- far below the
 // card's ratio, so the least time is the cache bytes over 3.35 TB/s.
 //
-// Design (simple and right first):
-//  * One block per (KV head, batch row) holds that group's G query rows.
-//    It streams only the first lengths[b] positions, 32 at a time, through
-//    shared memory, and all G heads read each staged tile: the cache is
-//    read once per group, not once per head, which is the GQA saving the
-//    TPU kernel was built around.
-//  * The online softmax (running max, denominator, accumulator) stays in
-//    float32 in shared memory.  The cache is read in place: no copy, and
-//    no padding of S to a tile multiple (the JAX wrapper pads the whole
-//    cache on every step).
-//  * Logits: one warp per (head, position) pair, lanes splitting D, then a
-//    shuffle sum.  Softmax update: one warp per head (32 lanes, one
-//    position each).  Accumulator: one thread per (head, column).
-//  * At the serving engine's shape (B = 8, Hkv = 8) this is 64 blocks on
-//    132 SMs, under half the card, each streaming its rows alone.
-//    Splitting S across blocks, with a second pass that combines their
-//    partial (m, l, acc), is the first lever for the PR that makes K7
-//    fast; double-buffering the tiles with cp.async is the second.
+// Design:
+//  * The cache is split along S into `splits` chunks (the wrapper picks
+//    the count from the shapes and the SM count alone, never from the
+//    lengths, so no decode step waits for the host).  One block takes one
+//    (chunk, KV head and group of GT of its query heads, batch row) and
+//    streams only the positions of its chunk below lengths[b]: every
+//    query head of the group reads each position once from the cache.
+//  * Within a block, each warp splits into lane groups; a lane group
+//    takes kU positions a step, its lanes splitting D into 16-byte
+//    vectors (8 bfloat16 or 4 float32 values).  The loads are cp.async
+//    copies into a two-stage ring in shared memory, one step ahead; each
+//    lane reads back only the bytes it copied itself, so the ring needs
+//    no barrier.  Logits reduce over the group's lanes with shuffles, and
+//    each lane group keeps its own online softmax (m, l, acc) in float32
+//    registers, in base 2 (q scaled by scale * log2 e).
+//  * At the end the block's lane groups combine through shared memory
+//    (the only barriers).  With one split the block writes the output;
+//    otherwise it writes float32 partials (m, l, acc) to scratch the
+//    wrapper allocated, and a second kernel combines the chunks.  A chunk
+//    past a row's length writes m = -1e30, l = 0.
+//  * Short caches (the serving engine's) take one split: one launch, no
+//    combine pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kBS = 32;  // cache positions per tile: one per lane
+constexpr int kU = 4;       // positions per lane group per step
+constexpr int kStages = 2;  // cp.async ring depth
 constexpr size_t kMaxSmem = 232448;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
-size_t smem_bytes(int G, int D) {
-  return sizeof(float) * (2 * static_cast<size_t>(G) * D +
-                          2 * static_cast<size_t>(kBS) * D + G * kBS + 3 * G);
+// the VEC values of one 16-byte vector, as floats
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 template <typename T, int D>
+struct Geometry {
+  static constexpr int VEC = 16 / sizeof(T);                   // per vector
+  static constexpr int LPP = D / VEC < 32 ? D / VEC : 32;      // lanes/pos
+  static constexpr int NV = D / (VEC * LPP);                   // vec/lane
+  static constexpr int PPW = 32 / LPP;                         // pos/warp
+  static constexpr int NG = kWarps * PPW;                      // groups
+  static constexpr int STEP = NG * kU;                         // pos/step
+  static constexpr size_t RING = sizeof(uint4) * kStages * kU * 2 * NV *
+                                 kThreads;
+};
+
+template <typename T, int D, int GT>
+size_t smem_bytes() {
+  using Geo = Geometry<T, D>;
+  const size_t combine = sizeof(float) * Geo::NG * GT * (D + 2);
+  return Geo::RING > combine ? Geo::RING : combine;
+}
+
+template <typename T, int D, int GT>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-              const T* __restrict__ vc, const int* __restrict__ lengths,
-              T* __restrict__ o, int S, int H, int Hkv, float scale) {
-  const int hk = blockIdx.x;
-  const long long b = blockIdx.y;
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                    const T* __restrict__ vc,
+                    const int* __restrict__ lengths, T* __restrict__ o,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int S, int H, int Hkv,
+                    int chunk, float scale_log2) {
+  using Geo = Geometry<T, D>;
+  constexpr int VEC = Geo::VEC, LPP = Geo::LPP, NV = Geo::NV;
+  constexpr int PPW = Geo::PPW, NG = Geo::NG;
+  constexpr int W = NV * VEC;  // values of D this lane holds
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+
+  const int split = blockIdx.x;
+  const int splits = gridDim.x;
+  const long long b = blockIdx.z;
   const int G = H / Hkv;
-  extern __shared__ float smem[];
-  float* qs = smem;             // (G, D) queries
-  float* acc = qs + G * D;      // (G, D) accumulator
-  float* ks = acc + G * D;      // (kBS, D) K tile
-  float* vs = ks + kBS * D;     // (kBS, D) V tile
-  float* lg = vs + kBS * D;     // (G, kBS) logits, then p
-  float* m = lg + G * kBS;      // (G,) running max
-  float* l = m + G;             // (G,) running denominator
-  float* alpha = l + G;         // (G,) this tile's rescale
+  const int hk = blockIdx.y / (G / GT);
+  const int h0 = hk * G + (blockIdx.y % (G / GT)) * GT;
+  const int len = max(0, min(lengths[b], S));
+  const int start = split * chunk;
+  const int end = min(start + chunk, len);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int len = max(0, min(lengths[b], S));
-  const long long qbase = (b * H + static_cast<long long>(hk) * G) * D;
+  const int lane = tid % 32;
+  const int li = lane % LPP;                         // lane in its group
+  const int grp = (tid / 32) * PPW + lane / LPP;     // group in the block
 
-  for (int e = tid; e < G * D; e += kThreads) {
-    qs[e] = to_f32(q[qbase + e]);
-    acc[e] = 0.0f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
+  float qf[GT][W], acc[GT][W], m[GT], l[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    const T* qg = q + (b * H + h0 + g) * D;
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      float f[VEC];
+      unpack(*reinterpret_cast<const uint4*>(qg + (v * LPP + li) * VEC), f);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[g][v * VEC + e] = f[e] * scale_log2;
+        acc[g][v * VEC + e] = 0.0f;
+      }
+    }
     m[g] = kNegInf;
     l[g] = 0.0f;
   }
-  __syncthreads();
 
-  for (int s0 = 0; s0 < len; s0 += kBS) {
-    for (int e = tid; e < kBS * D; e += kThreads) {
-      const int r = e / D, d = e % D;
-      const int pos = s0 + r;
-      float kv = 0.0f, vv = 0.0f;
-      if (pos < len) {
-        const long long idx = ((b * S + pos) * Hkv + hk) * D + d;
-        kv = to_f32(kc[idx]);
-        vv = to_f32(vc[idx]);
-      }
-      ks[e] = kv;
-      vs[e] = vv;
-    }
-    __syncthreads();
-
-    for (int pr = warp; pr < G * kBS; pr += kWarps) {
-      const int g = pr / kBS, r = pr % kBS;
-      float part = 0.0f;
-      for (int d = lane; d < D; d += 32)
-        part = fmaf(qs[g * D + d], ks[r * D + d], part);
+  // this thread's slot of the ring: stage, position, K or V, vector
+  uint4* ring = reinterpret_cast<uint4*>(smem_raw);
+  auto slot = [&](int stage, int u, int kv, int v) -> uint4* {
+    return ring + (((stage * kU + u) * 2 + kv) * NV + v) * kThreads + tid;
+  };
+  const long long row_stride = static_cast<long long>(Hkv) * D;
+  const T* kb = kc + (b * S * Hkv + hk) * D;
+  const T* vb = vc + (b * S * Hkv + hk) * D;
+  auto fetch = [&](int st) {
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, w);
-      if (lane == 0) lg[g * kBS + r] = s0 + r < len ? part * scale : kNegInf;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {
-      const float x = lg[g * kBS + lane];
-      const float m_old = m[g];
-      float mt = x;
+    for (int u = 0; u < kU; ++u) {
+      const int pos = start + (st * NG + grp) * kU + u;
+      const bool ok = pos < end;
+      const long long at = (ok ? pos : 0) * row_stride;
 #pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, w));
-      const float m_new = fmaxf(m_old, mt);
-      const float p = expf(x - m_new);
-      float rs = p;
-#pragma unroll
-      for (int w = 16; w > 0; w >>= 1)
-        rs += __shfl_xor_sync(0xffffffffu, rs, w);
-      lg[g * kBS + lane] = p;
-      __syncwarp();
-      if (lane == 0) {
-        const float a = expf(m_old - m_new);
-        alpha[g] = a;
-        l[g] = l[g] * a + rs;
-        m[g] = m_new;
+      for (int v = 0; v < NV; ++v) {
+        const int d0 = (v * LPP + li) * VEC;
+        sm90::cp_async16(slot(st % kStages, u, 0, v), kb + at + d0,
+                         ok ? 16 : 0);
+        sm90::cp_async16(slot(st % kStages, u, 1, v), vb + at + d0,
+                         ok ? 16 : 0);
       }
     }
-    __syncthreads();
+  };
 
-    for (int e = tid; e < G * D; e += kThreads) {
-      const int g = e / D, d = e % D;
-      float a = acc[e] * alpha[g];
-#pragma unroll 8
-      for (int r = 0; r < kBS; ++r) a = fmaf(lg[g * kBS + r], vs[r * D + d], a);
-      acc[e] = a;
+  const int steps = end > start ? (end - start + Geo::STEP - 1) / Geo::STEP
+                                : 0;
+  if (steps > 0) fetch(0);
+  sm90::cp_async_commit();
+  for (int st = 0; st < steps; ++st) {
+    if (st + 1 < steps) fetch(st + 1);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<1>();
+    const int stage = st % kStages;
+
+    float sc[kU][GT];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g) sc[u][g] = 0.0f;
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        float f[VEC];
+        unpack(*slot(stage, u, 0, v), f);
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            sc[u][g] = fmaf(qf[g][v * VEC + e], f[e], sc[u][g]);
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int w = LPP / 2; w > 0; w >>= 1)
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+          sc[u][g] += __shfl_xor_sync(0xffffffffu, sc[u][g], w);
+
+    const int pos0 = start + (st * NG + grp) * kU;
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int u = 0; u < kU; ++u)
+        if (pos0 + u < end) mx = fmaxf(mx, sc[u][g]);
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = exp2f(m[g] - m_new);
+      m[g] = m_new;
+      l[g] *= alpha;
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[g][i] *= alpha;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        sc[u][g] = pos0 + u < end ? exp2f(sc[u][g] - m_new) : 0.0f;
+        l[g] += sc[u][g];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u)
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        float f[VEC];
+        unpack(*slot(stage, u, 1, v), f);
+#pragma unroll
+        for (int g = 0; g < GT; ++g)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            acc[g][v * VEC + e] = fmaf(sc[u][g], f[e], acc[g][v * VEC + e]);
+      }
   }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the ring's memory becomes the combine's
 
-  for (int e = tid; e < G * D; e += kThreads)
-    store(o + qbase + e, acc[e] / fmaxf(l[e / D], 1e-30f));
+  float* cm = reinterpret_cast<float*>(smem_raw);  // (NG, GT)
+  float* cl = cm + NG * GT;                        // (NG, GT)
+  float* ca = cl + NG * GT;                        // (NG, GT, D)
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    if (li == 0) {
+      cm[grp * GT + g] = m[g];
+      cl[grp * GT + g] = l[g];
+    }
+#pragma unroll
+    for (int v = 0; v < NV; ++v)
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        ca[(grp * GT + g) * D + (v * LPP + li) * VEC + e] =
+            acc[g][v * VEC + e];
+  }
+  __syncthreads();
+  for (int e = tid; e < GT * D; e += kThreads) {
+    const int g = e / D, d = e % D;
+    float M = kNegInf;
+    for (int n = 0; n < NG; ++n) M = fmaxf(M, cm[n * GT + g]);
+    float L = 0.0f, A = 0.0f;
+    for (int n = 0; n < NG; ++n) {
+      const float w = exp2f(cm[n * GT + g] - M);
+      L = fmaf(cl[n * GT + g], w, L);
+      A = fmaf(ca[(n * GT + g) * D + d], w, A);
+    }
+    const long long hrow = b * H + h0 + g;
+    if (splits == 1) {
+      store(o + hrow * D + d, A / fmaxf(L, 1e-30f));
+    } else {
+      const long long p = hrow * splits + split;
+      part_acc[p * D + d] = A;
+      if (d == 0) {
+        part_m[p] = M;
+        part_l[p] = L;
+      }
+    }
+  }
 }
 
-template <typename T, int D>
+// out[b, h] from the splits' partials of row (b, h): one block per row
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part_m,
+                      const float* __restrict__ part_l,
+                      const float* __restrict__ part_acc, T* __restrict__ o,
+                      int splits, int D) {
+  const long long hrow = blockIdx.x;
+  const float* pm = part_m + hrow * splits;
+  const float* pl = part_l + hrow * splits;
+  const float* pa = part_acc + hrow * splits * D;
+  float M = kNegInf;
+  for (int s = 0; s < splits; ++s) M = fmaxf(M, pm[s]);
+  float L = 0.0f;
+  for (int s = 0; s < splits; ++s) L = fmaf(pl[s], exp2f(pm[s] - M), L);
+  const float denom = fmaxf(L, 1e-30f);
+  for (int d = threadIdx.x; d < D; d += kThreads) {
+    float A = 0.0f;
+    for (int s = 0; s < splits; ++s)
+      A = fmaf(pa[s * D + d], exp2f(pm[s] - M), A);
+    store(o + hrow * D + d, A / denom);
+  }
+}
+
+template <typename T, int D, int GT>
 int launch(const void* q, const void* kc, const void* vc, const int* lengths,
-           void* o, int B, int S, int H, int Hkv, float scale,
+           void* o, float* part_m, float* part_l, float* part_acc, int B,
+           int S, int H, int Hkv, float scale, int splits, int chunk,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(H / Hkv, D);
+  const size_t smem = smem_bytes<T, D, GT>();
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = decode_kernel<T, D>;
+  auto kernel = decode_split_kernel<T, D, GT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(Hkv, B);
+  const dim3 grid(splits, Hkv * (H / Hkv / GT), B);
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), lengths, static_cast<T*>(o), S, H, Hkv,
-      scale);
+      static_cast<const T*>(vc), lengths, static_cast<T*>(o), part_m,
+      part_l, part_acc, S, H, Hkv, chunk, scale * kLog2e);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  decode_combine_kernel<T><<<B * H, kThreads, 0, stream>>>(
+      part_m, part_l, part_acc, static_cast<T*>(o), splits, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int by_group(const void* q, const void* kc, const void* vc,
+             const int* lengths, void* o, float* pm, float* pl, float* pa,
+             int B, int S, int H, int Hkv, float scale, int splits,
+             int chunk, cudaStream_t stream) {
+  const int G = H / Hkv;
+  if (G % 8 == 0)
+    return launch<T, D, 8>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                           scale, splits, chunk, stream);
+  if (G % 4 == 0)
+    return launch<T, D, 4>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                           scale, splits, chunk, stream);
+  if (G % 2 == 0)
+    return launch<T, D, 2>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                           scale, splits, chunk, stream);
+  return launch<T, D, 1>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                         scale, splits, chunk, stream);
 }
 
 template <typename T>
 int dispatch(int D, const void* q, const void* kc, const void* vc,
-             const int* lengths, void* o, int B, int S, int H, int Hkv,
-             float scale, cudaStream_t stream) {
+             const int* lengths, void* o, float* pm, float* pl, float* pa,
+             int B, int S, int H, int Hkv, float scale, int splits,
+             int chunk, cudaStream_t stream) {
   switch (D) {
     case 16:
-      return launch<T, 16>(q, kc, vc, lengths, o, B, S, H, Hkv, scale, stream);
+      return by_group<T, 16>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                             scale, splits, chunk, stream);
     case 32:
-      return launch<T, 32>(q, kc, vc, lengths, o, B, S, H, Hkv, scale, stream);
+      return by_group<T, 32>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                             scale, splits, chunk, stream);
     case 64:
-      return launch<T, 64>(q, kc, vc, lengths, o, B, S, H, Hkv, scale, stream);
+      return by_group<T, 64>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                             scale, splits, chunk, stream);
     case 128:
-      return launch<T, 128>(q, kc, vc, lengths, o, B, S, H, Hkv, scale,
-                            stream);
+      return by_group<T, 128>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H,
+                              Hkv, scale, splits, chunk, stream);
     case 256:
-      return launch<T, 256>(q, kc, vc, lengths, o, B, S, H, Hkv, scale,
-                            stream);
+      return by_group<T, 256>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H,
+                              Hkv, scale, splits, chunk, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -199,16 +370,23 @@ int dispatch(int D, const void* q, const void* kc, const void* vc,
 
 }  // namespace
 
+// splits * chunk >= S; with splits > 1, part_m and part_l hold
+// B * H * splits floats and part_acc B * H * splits * D (else unused).
 extern "C" int decode_attention_launch(const void* q, const void* kc,
                                        const void* vc, const int* lengths,
-                                       void* o, int B, int S, int H, int Hkv,
-                                       int D, int bf16, float scale,
+                                       void* o, float* part_m, float* part_l,
+                                       float* part_acc, int B, int S, int H,
+                                       int Hkv, int D, int is_bf16, float scale,
+                                       int splits, int chunk,
                                        cudaStream_t stream) {
   if (B <= 0 || H <= 0) return 0;
-  if (Hkv <= 0 || H % Hkv != 0 || S < 0)
+  if (Hkv <= 0 || H % Hkv != 0 || S < 0 || splits < 1 ||
+      static_cast<long long>(splits) * chunk < S)
     return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? dispatch<__nv_bfloat16>(D, q, kc, vc, lengths, o, B, S, H,
-                                        Hkv, scale, stream)
-              : dispatch<float>(D, q, kc, vc, lengths, o, B, S, H, Hkv, scale,
-                                stream);
+  return is_bf16 ? dispatch<bf16>(D, q, kc, vc, lengths, o, part_m, part_l,
+                                  part_acc, B, S, H, Hkv, scale, splits,
+                                  chunk, stream)
+                 : dispatch<float>(D, q, kc, vc, lengths, o, part_m, part_l,
+                                   part_acc, B, S, H, Hkv, scale, splits,
+                                   chunk, stream);
 }

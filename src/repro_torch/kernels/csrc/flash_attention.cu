@@ -1,8 +1,9 @@
 // K6: blocked online-softmax (flash) attention with grouped KV heads.
 //
 // Replaces src/repro/kernels/flash_attention.py `_flash_kernel` (entry
-// `flash_attention`).  q (B, Lq, H, D); k and v (B, Lk, Hkv, D), all
-// contiguous, float32 or bfloat16; out (B, Lq, H, D) in q's type.  The KV
+// `flash_attention`) for float32 inputs; bfloat16 runs on the tensor
+// cores in flash_attention_sm90.cu.  q (B, Lq, H, D); k and v
+// (B, Lk, Hkv, D), all contiguous float32; out (B, Lq, H, D).  The KV
 // head of query head h is h / (H / Hkv): no repeated K or V is ever made.
 // Masks come from global indices with the offset Lk - Lq (the query rows
 // are the last Lq positions): causal `row + off >= col`, and with a window
@@ -12,10 +13,9 @@
 // What bounds it on the H100: operations.  Each visible (row, col) pair
 // costs 4*D float operations (one dot product for the logit, one
 // multiply-add row of P @ V); at L = 4096 and D = 128 that is over a
-// thousand operations per byte read, far above the card's ratio.  This
-// first version runs float32 FMAs on the CUDA cores (67 TFLOP/s) even for
-// bfloat16 inputs, whose tensor-core peak is 989 TFLOP/s; `wgmma` on
-// bfloat16 tiles is the lever for the PR that makes K6 fast.
+// thousand operations per byte read, far above the card's ratio.  It
+// runs float32 FMAs on the CUDA cores (67 TFLOP/s): TF32 `wgmma` would
+// round the products past the float32 contract's 2e-5.
 //
 // Design (simple and right first):
 //  * One block per (query tile of 64 rows, head, batch row).  A loop over
@@ -30,10 +30,9 @@
 //  * 256 threads as a 16 x 16 grid: a thread owns rows ty + 16 i of the
 //    tile, logit columns tx + 16 j and output columns tx + 16 j.  The 16
 //    threads of a row sit in one half-warp, so row max and row sum are
-//    warp shuffles.  Q, K, V and P tiles are staged in shared memory as
-//    float32 (Q and K rows padded by one float against bank conflicts).
+//    warp shuffles.  Q, K, V and P tiles are staged in shared memory
+//    (Q and K rows padded by one float against bank conflicts).
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -43,13 +42,7 @@ constexpr int kThreads = 256;
 constexpr int kBQ = 64;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr int kv_tile() { return D >= 128 ? 32 : 64; }
@@ -256,17 +249,16 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// window <= 0 means no window; the window applies only when causal.
+// float32 only; window <= 0 means no window; the window applies only
+// when causal.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Lq,
                                       int Lk, int H, int Hkv, int D,
-                                      int bf16, float scale, int causal,
-                                      int window, cudaStream_t stream) {
+                                      float scale, int causal, int window,
+                                      cudaStream_t stream) {
   if (B <= 0 || Lq <= 0 || H <= 0) return 0;
   if (Hkv <= 0 || H % Hkv != 0 || Lk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  return bf16 ? dispatch<__nv_bfloat16>(D, q, k, v, o, B, Lq, Lk, H, Hkv,
-                                        scale, causal, window, stream)
-              : dispatch<float>(D, q, k, v, o, B, Lq, Lk, H, Hkv, scale,
-                                causal, window, stream);
+  return dispatch<float>(D, q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal,
+                         window, stream);
 }

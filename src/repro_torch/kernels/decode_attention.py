@@ -9,8 +9,12 @@ The CUDA source is ``csrc/decode_attention.cu``; it says what bounds the
 kernel on the card.  It reads the cache in place and streams only each
 row's first ``lengths[b]`` positions: no padding of S (``repro``'s
 wrapper pads the whole cache to a multiple of 512 on every step).  A
-CUDA tensor launches it; a CPU tensor takes ``decode_attention_plain``,
-``repro``'s ``ref.decode_attention_ref``.
+long cache is split along S across blocks, and a second pass combines
+the chunks' partials: ``decode_splits`` picks the split from the shapes
+and the SM count alone, and ``decode_attention_split_plain`` is that
+split-and-combine arithmetic in plain PyTorch (for the tests; no path
+runs it).  A CUDA tensor launches the kernel; a CPU tensor takes
+``decode_attention_plain``, ``repro``'s ``ref.decode_attention_ref``.
 """
 from __future__ import annotations
 
@@ -22,8 +26,15 @@ import torch
 from . import _build
 from .flash_attention import check_inputs
 
-# kernel launches since process start (chip_smoke.py resets and reads them)
+# kernel launches since process start (chip_smoke.py resets and reads
+# them); one a wrapper call, the combine pass included
 launches: int = 0
+
+# a cache is split only into chunks of at least this many positions, so
+# the engine's short caches keep one launch with no combine pass
+MIN_CHUNK = 1024
+# blocks the split aims for, per SM
+BLOCKS_PER_SM = 4
 
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -50,14 +61,68 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("decode_attention")
-    fn = lib.decode_attention_launch
+def decode_splits(batch: int, kv_heads: int, seq_len: int,
+                  num_sms: int) -> tuple[int, int]:
+    """``(splits, chunk)`` for a cache of ``seq_len`` positions: enough
+    chunks that ``batch * kv_heads * splits`` blocks give every one of
+    ``num_sms`` SMs ``BLOCKS_PER_SM`` blocks, none shorter than
+    ``MIN_CHUNK``; ``splits * chunk >= seq_len`` and ``splits >= 1``.
+    Nothing here reads the lengths: a decode step never waits for the
+    host to see them."""
+    rows = max(1, batch * kv_heads)
+    want = -(-BLOCKS_PER_SM * num_sms // rows)
+    splits = max(1, min(want, seq_len // MIN_CHUNK))
+    chunk = max(1, -(-seq_len // splits))
+    return -(-seq_len // chunk) if seq_len else 1, chunk
+
+
+def decode_attention_split_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                                 v_cache: torch.Tensor,
+                                 lengths: torch.Tensor, *, chunk: int,
+                                 scale: float | None = None) -> torch.Tensor:
+    """The kernel's split arithmetic in plain PyTorch, in float32: per
+    chunk of ``chunk`` positions the partials m (the largest logit below
+    the length, -1e30 if none), l (the sum of exp(logit - m)) and acc
+    (those weights times V), then the combine ``sum(acc_c w_c) /
+    max(sum(l_c w_c), 1e-30)`` with ``w_c = exp(m_c - max m)``.  A row
+    of length 0 gives zeros."""
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    group = H // Hkv
+    lens = lengths.to(q.device).clamp(0, S)
+    ms, ls, accs = [], [], []
+    for c0 in range(0, max(S, 1), chunk):
+        kc = k_cache[:, c0:c0 + chunk].float()
+        vc = v_cache[:, c0:c0 + chunk].float()
+        kq = kc.repeat_interleave(group, dim=2)
+        vq = vc.repeat_interleave(group, dim=2)
+        logits = torch.einsum("bhd,bshd->bhs", q.float(), kq) * scale
+        pos = c0 + torch.arange(kc.shape[1], device=q.device)
+        mask = (pos[None, None, :] < lens[:, None, None]).expand_as(logits)
+        logits = logits.masked_fill(~mask, -1e30)
+        m = logits.amax(-1, keepdim=True) if logits.shape[-1] else \
+            torch.full((B, H, 1), -1e30, device=q.device)
+        p = torch.exp(logits - m) * mask
+        ms.append(m)
+        ls.append(p.sum(-1, keepdim=True))
+        accs.append(torch.einsum("bhs,bshd->bhd", p, vq))
+    m_all = torch.cat(ms, -1)                                 # (B, H, C)
+    w = torch.exp(m_all - m_all.amax(-1, keepdim=True))
+    denom = (torch.cat(ls, -1) * w).sum(-1, keepdim=True).clamp_min(1e-30)
+    acc = (torch.stack(accs, -1) * w[:, :, None, :]).sum(-1)
+    return (acc / denom).to(q.dtype)
+
+
+def _launcher():
+    fn = _build.load("decode_attention").decode_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -94,11 +159,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       scale=scale)
     lens = lengths.to(torch.int32).contiguous()
+    splits, chunk = decode_splits(
+        B, Hkv, S,
+        torch.cuda.get_device_properties(q.device).multi_processor_count)
     out = torch.empty_like(q)
-    status = _lib().decode_attention_launch(
+    parts = [None, None, None]
+    if splits > 1:
+        parts = [torch.empty((B, H, splits), dtype=torch.float32,
+                             device=q.device) for _ in range(2)]
+        parts.append(torch.empty((B, H, splits, D), dtype=torch.float32,
+                                 device=q.device))
+    ptrs = [0 if x is None else x.data_ptr() for x in parts]
+    status = _launcher()(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-        out.data_ptr(), B, S, H, Hkv, D, int(q.dtype == torch.bfloat16),
-        scale, torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), *ptrs, B, S, H, Hkv, D,
+        int(q.dtype == torch.bfloat16), scale, splits, chunk,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "decode_attention")
     launches += 1
     return out

@@ -6,10 +6,14 @@ q (B, Lq, H, D), k and v (B, Lk, Hkv, D), float32 or bfloat16, out
 (B, Lq, H, D) in q's type; KV head ``h // (H // Hkv)``; causal and
 sliding-window masks from global indices with the offset ``Lk - Lq``.
 
-The CUDA source is ``csrc/flash_attention.cu``; it says what bounds the
-kernel on the card.  A CUDA tensor launches it, whatever its lengths:
-the kernel masks ragged ``Lq``, ``Lk`` and ``Lq != Lk`` itself, so
-nothing falls back to a plain version (``repro``'s wrapper falls back to
+Each dtype has one CUDA kernel, and its source says what bounds it on
+the card: bfloat16 runs on the tensor cores (``wgmma``) in
+``csrc/flash_attention_sm90.cu``; float32 runs the SIMT kernel of
+``csrc/flash_attention.cu``, because TF32 products would break the
+float32 contract's 2e-5.  A CUDA tensor launches its dtype's kernel,
+whatever its lengths, and a failed build or launch raises: the kernels
+mask ragged ``Lq``, ``Lk`` and ``Lq != Lk`` themselves, so nothing falls
+back to a plain version (``repro``'s wrapper falls back to
 ``ref.mha_ref`` for those because of the TPU's tile alignment).  A CPU
 tensor takes ``flash_attention_plain``, ``repro``'s ``ref.mha_ref``.
 """
@@ -22,8 +26,10 @@ import torch
 
 from . import _build
 
-# kernel launches since process start (chip_smoke.py resets and reads them)
-launches: int = 0
+# kernel launches since process start (chip_smoke.py resets and reads
+# them): the float32 SIMT kernel's and the bfloat16 wgmma kernel's
+simt_launches: int = 0
+wgmma_launches: int = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -55,20 +61,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("flash_attention")
-    fn = lib.flash_attention_launch
+def _launcher(bf16: bool):
+    """The C launch function of the dtype's kernel (same arguments)."""
+    if bf16:
+        fn = _build.load("flash_attention_sm90").flash_attention_sm90_launch
+    else:
+        fn = _build.load("flash_attention").flash_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
 def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
     """Raise unless the tensors share one device and one dtype (float32
-    or bfloat16), are contiguous, and the head dim is one the kernels
+    or bfloat16), are contiguous (and 16-byte aligned on the card, for
+    the kernels' 16-byte copies), and the head dim is one the kernels
     are built for.  Shared with K7's wrapper."""
     first = next(iter(tensors.values()))
     for arg, x in tensors.items():
@@ -80,6 +90,8 @@ def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
                             f"{first.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
+        if x.is_cuda and x.data_ptr() % 16:
+            raise ValueError(f"{name}: {arg} must start 16-byte aligned")
     if first.dtype not in DTYPES:
         raise TypeError(f"{name}: dtype must be float32 or bfloat16, got "
                         f"{first.dtype}")
@@ -95,8 +107,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``window`` (applied only when ``causal``) keeps the columns with
     ``row + Lk - Lq - col < window``; ``scale`` defaults to
-    ``1 / sqrt(D)``."""
-    global launches
+    ``1 / sqrt(D)``.  On the card the dtype picks the kernel: bfloat16
+    launches the ``wgmma`` kernel, float32 the SIMT kernel; a CPU tensor
+    takes ``flash_attention_plain``."""
+    global simt_launches, wgmma_launches
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Lq, H, D) and k, v "
                          f"(B, Lk, Hkv, D), got {tuple(q.shape)}, "
@@ -113,11 +127,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
-    status = _lib().flash_attention_launch(
+    status = _launcher(bf16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq, Lk,
-        H, Hkv, D, int(q.dtype == torch.bfloat16), scale, int(causal),
-        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(status, "flash_attention")
-    launches += 1
+        H, Hkv, D, scale, int(causal), int(window or 0),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(status, "flash_attention_sm90" if bf16 else
+                 "flash_attention")
+    if bf16:
+        wgmma_launches += 1
+    else:
+        simt_launches += 1
     return out

@@ -207,3 +207,66 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(TypeError):
         kd.decode_attention(q1.to(torch.bfloat16), tk, tv,
                             torch.tensor([2], dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# K7's split across the cache: the plain split-and-combine, the host's
+# choice of splits
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chunk", [64, 100, 150, 300, 512])
+def test_decode_split_plain_matches_plain_and_ref(chunk):
+    """Chunks of 64 end exactly at length 64 and leave S = 300 ragged;
+    the row of length 1 leaves every chunk but the first empty; the row
+    of length 0 gives zeros (the one-softmax versions give NaN there)."""
+    B, S, H, Hkv, D = 4, 300, 8, 2, 16
+    arrays = _normals(17, (B, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    (jq, jk, jv), (tq, tk, tv) = _both(arrays, "float32")
+    lens = np.array([0, 1, 64, 299], np.int32)
+    got = kd.decode_attention_split_plain(tq, tk, tv, torch.from_numpy(lens),
+                                          chunk=chunk)
+    assert got.dtype == torch.float32 and got.shape == tq.shape
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    plain = kd.decode_attention_plain(tq, tk, tv, torch.from_numpy(lens))
+    np.testing.assert_allclose(got[1:].numpy(), plain[1:].numpy(), atol=1e-6,
+                               rtol=0)
+    want = np.asarray(ref.decode_attention_ref(jq, jk, jv, jnp.asarray(lens)))
+    np.testing.assert_allclose(got[1:].numpy(), want[1:], atol=1e-6, rtol=0)
+
+
+def test_decode_split_plain_bfloat16_and_clamped_lengths():
+    B, S, H, Hkv, D = 2, 130, 4, 1, 32
+    arrays = _normals(18, (B, H, D), (B, S, Hkv, D), (B, S, Hkv, D))
+    _, (tq, tk, tv) = _both(arrays, "bfloat16")
+    lens = torch.tensor([500, 65], dtype=torch.int32)   # 500 clamps to S
+    got = kd.decode_attention_split_plain(tq, tk, tv, lens, chunk=64)
+    assert got.dtype == torch.bfloat16
+    want = kd.decode_attention_plain(tq, tk, tv, lens.clamp(0, S))
+    assert (got.float() - want.float()).abs().max().item() <= TOL["bfloat16"]
+
+
+def test_decode_splits_choice():
+    """Never reads the lengths (it is not given them), always at least one
+    split, chunks cover S with no chunk wholly past it, none shorter than
+    ``MIN_CHUNK`` once split, and enough blocks to fill the SMs."""
+    import inspect
+    assert list(inspect.signature(kd.decode_splits).parameters) == [
+        "batch", "kv_heads", "seq_len", "num_sms"]
+    assert kd.decode_splits(8, 8, 1024, 132) == (1, 1024)  # the engine's
+    rng = np.random.default_rng(19)
+    shapes = [(16, 8, 32768, 132), (1, 1, 0, 132), (1, 1, 1, 132),
+              (4, 2, 5000, 132), (64, 8, 4096, 132), (512, 8, 65536, 132)]
+    shapes += [tuple(int(x) for x in (rng.integers(1, 65),
+                                      rng.choice([1, 2, 4, 8, 32]),
+                                      rng.integers(0, 200_000),
+                                      rng.choice([1, 8, 114, 132])))
+               for _ in range(200)]
+    for B, Hkv, S, sms in shapes:
+        splits, chunk = kd.decode_splits(B, Hkv, S, sms)
+        assert splits >= 1 and chunk >= 1 and splits * chunk >= S
+        assert S == 0 or (splits - 1) * chunk < S
+        if splits > 1:
+            assert chunk >= kd.MIN_CHUNK
+            assert B * Hkv * (splits - 1) < kd.BLOCKS_PER_SM * sms
+    splits, _ = kd.decode_splits(16, 8, 32768, 132)
+    assert 16 * 8 * splits >= 132 * 2

@@ -127,7 +127,7 @@ def test_cpu_tensors_take_the_plain_versions():
     assert set(kernels.launch_counts()) == {
         "frontier_masks", "frontier_fused_masks", "frontier_deque_round",
         "counting_spmm", "minplus_spmv", "flash_attention",
-        "decode_attention"}
+        "flash_attention_sm90", "decode_attention"}
     assert _build._loaded == loaded        # nothing was built or loaded
     with pytest.raises(TypeError):
         fe.frontier_masks(paths.long(), begin, end, dst, meta, max_deg=1)

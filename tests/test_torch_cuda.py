@@ -293,6 +293,11 @@ def test_cuda_stacked_bfs_equals_cpu(cuda):
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
+def _k6_launches():
+    """K6's launches, both kernels (float32 SIMT, bfloat16 wgmma)."""
+    return kf.simt_launches + kf.wgmma_launches
+
+
 def _normal(shape, seed, dtype, device):
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
@@ -314,10 +319,10 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Lq, Lk, H, Hkv, D,
     q = _normal((B, Lq, H, D), 1, dtype, cuda)
     k = _normal((B, Lk, Hkv, D), 2, dtype, cuda)
     v = _normal((B, Lk, Hkv, D), 3, dtype, cuda)
-    before = kf.launches
+    before = _k6_launches()
     got = kf.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
-    assert kf.launches == before + 1
+    assert _k6_launches() == before + 1
     want = kf.flash_attention_plain(q, k, v, causal=True, window=window)
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
@@ -370,6 +375,89 @@ def test_cuda_decode_attention_empty_row_is_zero(cuda):
     assert (got[1:] - want).abs().max().item() <= ATTN_TOL[torch.float32]
 
 
+# bfloat16 K6 runs on the wgmma kernel: 128-row query tiles of two 64-row
+# warpgroups, KV tiles of 128 positions (64 for D = 256)
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Lq,Lk,H,Hkv,D,window,causal", [
+    (1, 200, 200, 2, 1, 16, None, True),     # D 16, G 2, Lq off the tile
+    (2, 129, 129, 8, 1, 32, None, True),     # D 32, G 8, one row past a tile
+    (1, 300, 300, 4, 4, 64, 100, True),      # G 1, window across KV tiles
+    (1, 64, 333, 16, 2, 128, None, True),    # Lq < Lk, Lk off the tile
+    (1, 100, 260, 8, 8, 128, 130, True),     # Lq < Lk with a window
+    (2, 190, 190, 4, 2, 256, 70, True),      # D 256 (64-position tiles)
+    (1, 257, 500, 4, 1, 256, None, False),   # not causal, Lq < Lk
+    (2, 77, 150, 16, 8, 64, None, False),    # not causal, ragged both
+    (1, 1, 1, 2, 1, 16, None, True),         # one row, one column
+])
+def test_cuda_flash_attention_bf16_tile_edges(cuda, B, Lq, Lk, H, Hkv, D,
+                                              window, causal):
+    q = _normal((B, Lq, H, D), 11, torch.bfloat16, cuda)
+    k = _normal((B, Lk, Hkv, D), 12, torch.bfloat16, cuda)
+    v = _normal((B, Lk, Hkv, D), 13, torch.bfloat16, cuda)
+    before, simt = kf.wgmma_launches, kf.simt_launches
+    got = kf.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert kf.wgmma_launches == before + 1 and kf.simt_launches == simt
+    want = kf.flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= ATTN_TOL[torch.bfloat16], err
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_float32_takes_simt_kernel(cuda):
+    q = _normal((1, 70, 4, 32), 14, torch.float32, cuda)
+    k = _normal((1, 70, 2, 32), 15, torch.float32, cuda)
+    before, wgmma = kf.simt_launches, kf.wgmma_launches
+    kf.flash_attention(q, k, k)
+    torch.cuda.synchronize()
+    assert kf.simt_launches == before + 1 and kf.wgmma_launches == wgmma
+
+
+def _split_lengths(S, chunk, B):
+    """Lengths 0, 1, exactly one chunk, one past it, S, and S - 1 (S is
+    not a multiple of the chunk below), cycled over B rows."""
+    picks = [0, 1, chunk, chunk + 1, S, S - 1]
+    return [picks[i % len(picks)] for i in range(B)]
+
+
+# K7 across the split: on a card of 114 to 132 SMs, B * Hkv = 4 gives 4
+# chunks of 1251 and B * Hkv = 96 three of 1025; no S is a multiple of
+# its chunk
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (2, 5001, 8, 2, 64),      # B * Hkv small: many splits
+    (12, 3073, 16, 8, 128),   # B * Hkv large: few splits
+    (6, 2501, 8, 1, 256),     # one KV head, G = 8
+    (6, 4101, 12, 4, 32),     # G = 3
+    (6, 2049, 4, 4, 16),      # G = 1, D = 16
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_decode_attention_split_boundaries(cuda, B, S, H, Hkv, D,
+                                                dtype):
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    splits, chunk = kd.decode_splits(B, Hkv, S, sms)
+    assert splits > 1, (splits, chunk)
+    q = _normal((B, H, D), 21, dtype, cuda)
+    kc = _normal((B, S, Hkv, D), 22, dtype, cuda)
+    vc = _normal((B, S, Hkv, D), 23, dtype, cuda)
+    lens = _split_lengths(S, chunk, B)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = kd.launches
+    got = kd.decode_attention(q, kc, vc, lengths)
+    torch.cuda.synchronize()
+    assert kd.launches == before + 1
+    empty = lengths == 0
+    assert torch.equal(got[empty], torch.zeros_like(got[empty]))
+    want = kd.decode_attention_plain(q, kc, vc, lengths)
+    err = (got[~empty].float() - want[~empty].float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], err
+    split_ref = kd.decode_attention_split_plain(q, kc, vc, lengths,
+                                                chunk=chunk)
+    err = (got.float() - split_ref.float()).abs().max().item()
+    assert err <= ATTN_TOL[dtype], err
+
+
 @pytest.mark.cuda
 def test_cuda_attention_wrappers_raise(cuda):
     q = _normal((1, 16, 2, 48), 1, torch.float32, cuda)
@@ -401,9 +489,9 @@ TINY = ArchConfig(name="tiny_serve", family="dense", num_layers=2,
 def test_cuda_lm_path_launches_per_layer_and_equals_plain(cuda):
     params = ttf.init_params(TINY, 0, device=cuda)
     toks = torch.tensor([[5, 9, 13, 2, 7, 40]], device=cuda)
-    before = kf.launches
+    before = _k6_launches()
     logits, cache, lens = ttf.prefill(params, TINY, {"tokens": toks})
-    assert kf.launches == before + TINY.num_layers
+    assert _k6_launches() == before + TINY.num_layers
     plain, _ = ttf.forward(params, TINY, {"tokens": toks}, impl="xla")
     assert (logits[:, 0] - plain[:, -1]).abs().max().item() < 2e-3
     big = ttf.init_cache(TINY, 1, 16, device=cuda)
