@@ -16,12 +16,18 @@ Phases, one JSON line each (``{"phase": ...}``):
    float32 integers), median time from CUDA events, the plain version's
    time, a one-call PyTorch yardstick where one exists, and the least
    time the card could take (``bound_ms``: bytes over 3.35 TB/s or
-   operations over 67 TFLOP/s float32, whichever is larger).
+   operations over 67 TFLOP/s float32, whichever is larger).  K2 (one
+   deque round, one launch of its persistent kernel) is compared on the
+   regions the host reads back (``deque_contract``), each timed call starts
+   from a fresh state restored outside the timed window, and the line
+   gives its launches and loop iterations; K2 and K3 also give
+   ``device_ms``, the card's part of a call.
 3. ``large``   — the main path at scale: ``erdos_renyi(n, 16.0)`` held on
    the card, queries at k = 8 through
    ``PathEnum(backend="device", use_device_index=True).query``: device
-   index build, planner, IDX-DFS on the frontier kernel (K1) inside the
-   resident work deque (K2).
+   index build, planner, IDX-DFS in the resident work deque (K2, whose
+   kernel runs K1's per-row logic) for full enumerations, and on the
+   frontier kernel (K1) in the host loop for ``first_n``.
 4. ``small``   — the device walk-count DP (K3, K4), which runs only on
    graphs of at most 2048 vertices: ``power_law(2000, 6.0, seed=3)`` with
    ``mode="join"`` and with ``mode="auto"`` at a τ low enough that the
@@ -292,6 +298,89 @@ def pick_large_queries(np, tc, ops, en, est, g, count, seed, dev):
     return picked, probes
 
 
+def deque_contract(cfg, out):
+    """The regions of a deque round's outputs that the host reads back
+    (``ops.DequeConfig``): the scalars, ``arena[:arena_cap]``, the meta
+    slots below ``max_chunks`` and ``emitbuf``/``emitlen[:n_emit]``.
+    The CUDA round writes only these; the plain round's masked scatters
+    also write the scratch past them."""
+    arena, md, ml, top, nc, eb, el, ne, ctr, pops = out
+    n = int(ne)
+    return [top.reshape(1), nc.reshape(1), ne.reshape(1), ctr,
+            pops.reshape(1), arena[:cfg.arena_cap], md[:cfg.max_chunks],
+            ml[:cfg.max_chunks], eb[:n], el[:n]]
+
+
+def deque_round_row(torch, np, en, ops, idx, cfg, dev):
+    """K2, one round from a fresh deque, against its plain version on the
+    regions the host reads back.  Every timed call starts from the same
+    fresh state, restored by copies outside the timed window: ``ms`` is
+    the median over calls of CUDA events around one call (the host's
+    launch cost included), ``device_ms`` the card's part (the call queued
+    behind ``torch.cuda._sleep``)."""
+    k1 = idx.k + 1
+    root = np.full(k1, -1, np.int32)
+    root[0] = idx.s
+    fresh = ops.frontier_deque_init(root, cfg=cfg, device=dev)
+    work = [x.clone() for x in fresh]
+    da = idx.device_arrays()
+    rargs = (da.begin, da.end, da.dst, idx.t)
+
+    def restore():
+        for w, f in zip(work, fresh):
+            w.copy_(f)
+        torch.cuda.synchronize()
+
+    def timed(fn, reps, sleep=False):
+        times = []
+        for _ in range(reps):
+            restore()
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            if sleep:
+                torch.cuda._sleep(20_000_000)
+            start.record()
+            fn(*work, *rargs, cfg=cfg)
+            stop.record()
+            stop.synchronize()
+            times.append(start.elapsed_time(stop))
+        return statistics.median(times)
+
+    restore()
+    launches0 = ops.deque_rounds
+    got = ops.frontier_deque_round(*work, *rargs, cfg=cfg)
+    got = [x.clone() for x in got]
+    launches = ops.deque_rounds - launches0
+    iterations = ops.last_round_iterations()
+    restore()
+    want = ops.frontier_deque_round_plain(*work, *rargs, cfg=cfg)
+    err = max_abs_err(torch, deque_contract(cfg, got),
+                      deque_contract(cfg, want))
+    check(err == 0, f"frontier_deque_round differs from its plain version: "
+                    f"{err}")
+    pops = int(got[9])
+    check(launches == 1, f"one round took {launches} launches")
+    check(iterations <= pops + 1,
+          f"{iterations} loop iterations for {pops} pops")
+    del got, want
+    r_in, r_edges, r_out = round_work(np, en, idx, CHUNK, pops)
+    nbytes = r_in * (k1 * 4 + 8) + r_edges * 4 + r_out * (k1 * 4 + 4)
+    b_ms, b_by = bound(nbytes, r_edges * (k1 + 4))
+    row = dict(
+        max_abs_err=err,
+        ms=timed(ops.frontier_deque_round, 7),
+        device_ms=timed(ops.frontier_deque_round, 5, sleep=True),
+        plain_ms=timed(ops.frontier_deque_round_plain, 3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=dict(block_rows=cfg.block_rows, max_deg=cfg.max_deg,
+                   round_pops=cfg.round_pops, pops=pops,
+                   launches=launches, loop_iterations=iterations,
+                   grid_syncs=2 * pops + 1, rows_in=r_in, edges=r_edges,
+                   rows_out=r_out))
+    del work, fresh
+    return row
+
+
 def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
     """Each kernel against its plain version, timed, at the path's shapes."""
     rows = {}
@@ -329,33 +418,8 @@ def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
                    max_deg=cfg.max_deg, edges=edges))
 
     # K2: one round from a fresh deque on the same index
-    root = np.full(k1, -1, np.int32)
-    root[0] = idx.s
-    state = ops.frontier_deque_init(root, cfg=cfg, device=dev)
-
-    def fresh():
-        return [x.clone() for x in state]
-
-    rargs = (da.begin, da.end, da.dst, idx.t)
-    got = ops.frontier_deque_round(*fresh(), *rargs, cfg=cfg)
-    want = ops.frontier_deque_round_plain(*fresh(), *rargs, cfg=cfg)
-    err = max_abs_err(torch, got, want)
-    check(err == 0, f"frontier_deque_round differs from its plain version: "
-                    f"{err}")
-    pops = int(got[9])
-    r_in, r_edges, r_out = round_work(np, en, idx, CHUNK, pops)
-    nbytes = r_in * (k1 * 4 + 8) + r_edges * 4 + r_out * (k1 * 4 + 4)
-    b_ms, b_by = bound(nbytes, r_edges * (k1 + 4))
-    rows["frontier_deque_round"] = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: ops.frontier_deque_round(
-            *fresh(), *rargs, cfg=cfg), 5, warmup=1),
-        plain_ms=time_ms(torch, lambda: ops.frontier_deque_round_plain(
-            *fresh(), *rargs, cfg=cfg), 3, warmup=1),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        shape=dict(block_rows=cfg.block_rows, max_deg=cfg.max_deg,
-                   round_pops=cfg.round_pops, pops=pops, rows_in=r_in,
-                   edges=r_edges, rows_out=r_out))
+    rows["frontier_deque_round"] = deque_round_row(torch, np, en, ops, idx,
+                                                   cfg, dev)
 
     # K3 at n = 2048, q = 1 (the DP's shape) and q = 128
     rng = np.random.default_rng(5)
@@ -374,9 +438,12 @@ def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
         k3[q] = dict(
             max_abs_err=err,
             ms=time_ms(torch, lambda: sr.counting_spmm(a, x), 50),
+            device_ms=device_ms(torch, lambda: sr.counting_spmm(a, x), 50),
             plain_ms=time_ms(torch, lambda: sr.counting_spmm_plain(a, x), 50),
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(torch, lambda: torch.matmul(a, x), 50),
+            library_device_ms=device_ms(torch, lambda: torch.matmul(a, x),
+                                        50),
             shape=dict(n=n, q=q))
     rows["counting_spmm"] = k3[1]
     emit({"phase": "kernel", "name": "counting_spmm", "q": 128, **k3[128]})
@@ -431,6 +498,8 @@ def large_phase(torch, tc, kernels, g, queries, dev):
                   "preliminary": out.plan.preliminary,
                   "count": r.count, "stats": vars(r.stats),
                   "exhausted": r.exhausted, "deque_rounds": rounds,
+                  "last_round_iterations":
+                      kernels.ops.last_round_iterations() if rounds else None,
                   "index_s": out.timing.index_seconds,
                   "plan_s": out.timing.optimize_seconds,
                   "enum_s": out.timing.enumerate_seconds})
@@ -1345,8 +1414,9 @@ def main() -> None:
         "frontier_fused_masks": (
             "src/repro_torch/kernels/csrc/frontier_fused.cu",
             "src/repro/kernels/frontier_expand.py:95"),
-        "frontier_deque_round": ("src/repro_torch/kernels/ops.py",
-                                 "src/repro/kernels/ops.py:382"),
+        "frontier_deque_round": (
+            "src/repro_torch/kernels/csrc/deque_round.cu",
+            "src/repro/kernels/ops.py:382"),
         "counting_spmm": ("src/repro_torch/kernels/csrc/semiring.cu",
                           "src/repro/kernels/semiring_spmm.py:78"),
         "minplus_spmv": ("src/repro_torch/kernels/csrc/semiring.cu",

@@ -351,7 +351,10 @@ def _drive_resident(idx: LightweightIndex, chunk_size: int,
     """
     from ..kernels import ops as kops
     k, s, t = idx.k, idx.s, idx.t
-    max_deg = int((idx.fwd_end[:, k] - idx.fwd_begin).max(initial=0))
+    dev = idx.device_arrays()
+    # the largest fan-out, on the index's device: a host scan of the
+    # (n, k+1) offsets takes milliseconds at a million vertices
+    max_deg = int((dev.end[:, k] - dev.begin).amax()) if idx.n else 0
     cfg = kops.deque_config(k + 1, chunk_size, max_deg)
     if max_deg == 0 or cfg.cap > DEVICE_SLOT_BUDGET \
             or chunk_size > cfg.arena_cap:
@@ -359,7 +362,6 @@ def _drive_resident(idx: LightweightIndex, chunk_size: int,
                       count_only=count_only, first_n=None, max_results=None,
                       deadline=deadline)
 
-    dev = idx.device_arrays()
     stats = EnumStats()
     out_paths: List[np.ndarray] = []
     out_lens: List[np.ndarray] = []

@@ -8,8 +8,9 @@ flash_attention  — K6, blocked online-softmax attention (bfloat16 on
                    the tensor cores, float32 on the SIMT kernel)
 frontier_expand  — K1 and K5, the IDX-DFS frontier masks (single-query
                    and fused over many queries)
-ops              — compaction, K2 (the resident work deque), the fused
-                   expand, bfs_dense
+ops              — compaction, K2 (the resident work deque, one
+                   persistent kernel per round), the fused expand,
+                   bfs_dense
 semiring_spmm    — K3 counting SpMM and K4 min-plus SpMV
 
 CUDA tensors launch the kernels (built from ``csrc/`` at first use by

@@ -25,12 +25,15 @@ import time
 from pathlib import Path
 from typing import Dict, List, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 
 # one shared library per source file
 SOURCES: Dict[str, str] = {
     "decode_attention": "decode_attention.cu",
+    "deque_round": "deque_round.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
     "frontier": "frontier.cu",
@@ -118,6 +121,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _loaded[name] = lib
     return lib
+
+
+def stream(device: torch.device) -> int:
+    """The ``cudaStream_t`` of the current stream on ``device``, the stream
+    every kernel launches on, read on every call.  The raw read skips the
+    Stream object that ``torch.cuda.current_stream(device).cuda_stream``
+    builds, which costs more host time than a launch (PERF.md,
+    ``tools/wrapper_host_cost.py``)."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(status: int, kernel: str) -> None:

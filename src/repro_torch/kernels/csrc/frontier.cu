@@ -16,7 +16,8 @@
 // gathers into begin/end/dst are irregular, so the sustained rate is the
 // rate of scattered 32-byte sectors, not the streaming rate.
 //
-// Design: one warp per row.  Lanes walk the row's candidate slots in
+// Design: one warp per row (the per-row logic is in frontier.cuh, shared
+// with the resident deque round K2).  Lanes walk the row's candidate slots in
 // steps of 32, so the dst reads of one warp are contiguous (one index
 // segment per row) and the output writes are coalesced.  The row prefix
 // is read by every lane from the same addresses (a broadcast through L1).
@@ -28,9 +29,10 @@
 
 #include <cuda_runtime.h>
 
+#include "frontier.cuh"
+
 namespace {
 
-constexpr int kPad = -1;
 constexpr int kWarpsPerBlock = 8;
 
 __global__ void frontier_masks_kernel(
@@ -49,49 +51,29 @@ __global__ void frontier_masks_kernel(
 
   const int depth = meta[0];
   const int t = meta[1];
-  int b = k1 - 2 - depth;  // budget k - depth - 1, clipped like the TPU code
-  b = b < 0 ? 0 : (b > k1 - 1 ? k1 - 1 : b);
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
 
   if (row < rows) {  // uniform across the warp
-    const int* prow = paths + static_cast<long long>(row) * k1;
-    const bool depth_ok = depth >= 0 && depth < k1;
-    const int last = depth_ok ? prow[depth] : kPad;
-    const bool valid = last != kPad;
-    int bg = 0;
-    int cnt = 0;
-    if (valid) {
-      bg = begin[last];
-      cnt = end[static_cast<long long>(last) * k1 + b] - bg;
-    }
+    const frontier::Row r = frontier::row_window(
+        paths + static_cast<long long>(row) * k1, begin, end, k1, depth);
     bool alive = false;
     int dups = 0;
     for (int j0 = 0; j0 < max_deg; j0 += 32) {
       const int j = j0 + lane;
-      const bool in_range = j < max_deg && j < cnt;
-      int v = kPad;
-      bool dup = false;
-      if (in_range) {
-        int pos = bg + j;
-        pos = pos < 0 ? 0 : (pos > mf - 1 ? mf - 1 : pos);
-        v = dst[pos];
-        for (int c = 0; c <= depth; ++c) dup |= (prow[c] == v);
-      }
-      const bool e = in_range && !dup && v == t;
-      const bool co = in_range && !dup && v != t;
+      const frontier::Slot s = frontier::row_slot(r, dst, mf, t, j, max_deg);
       if (j < max_deg) {
         const long long o = static_cast<long long>(row) * max_deg + j;
-        vnew[o] = (e || co) ? v : kPad;
-        emit[o] = e ? 1 : 0;
-        cont[o] = co ? 1 : 0;
+        vnew[o] = (s.emit || s.cont) ? s.v : frontier::kPad;
+        emit[o] = s.emit ? 1 : 0;
+        cont[o] = s.cont ? 1 : 0;
       }
-      alive |= __any_sync(0xffffffffu, e || co);
-      dups += __popc(__ballot_sync(0xffffffffu, in_range && dup));
+      alive |= __any_sync(0xffffffffu, s.emit || s.cont);
+      dups += __popc(__ballot_sync(0xffffffffu, s.in_range && s.dup));
     }
     if (lane == 0) {
-      atomicAdd(&blk_edges, valid ? cnt : 0);
-      atomicAdd(&blk_invalid, dups + ((valid && !alive) ? 1 : 0));
+      atomicAdd(&blk_edges, frontier::row_edges(r));
+      atomicAdd(&blk_invalid, frontier::row_invalid(r, dups, alive));
     }
   }
   __syncthreads();

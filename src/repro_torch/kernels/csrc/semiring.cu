@@ -4,9 +4,18 @@
 // `_counting_kernel` (entry `counting_spmm`): out = A @ x with A (n, n)
 // float32 edge counts and x (n, q) float32 walk counts, accumulated in
 // IEEE float32 with fused multiply-adds.  No TF32 and no tensor cores:
-// the DP's exactness certificate (EXACT_COUNT_MAX = 2^24 in
-// core/estimator.py) needs every partial sum to be an exact float32
-// integer, and then the order of the sum cannot change the result.
+// TF32 keeps 10 mantissa bits, so it is not exact above 2^11.
+//
+// Why the kernels may sum in any order (and split K across blocks): every
+// term a[i, k] * x[k, j] is a non-negative integer, so every partial sum,
+// in whatever order it is taken, is at most the final value.  While the
+// final value is below 2^24 (core/estimator.py EXACT_COUNT_MAX) every
+// partial sum is an integer below 2^24, which float32 holds exactly, so
+// each add is exact and the result is the same in every order.  When a
+// value reaches 2^24 the DP discards the device tables and promotes itself
+// to the host build.  The split-K partials are added by a second pass in a
+// fixed order, with no float atomics, so every run gives the same bits
+// even outside that range.
 //
 // K4, min-plus SpMV, replaces `_minplus_kernel` (entry `minplus_spmv`):
 // out[v] = min(dist[v], inf, min_u adj[u, v] + dist[u]) with adj (n, n)
@@ -19,11 +28,23 @@
 // float32 operations and is bound by the card's non-tensor float32 rate.
 //
 // Design:
-//  * K3 at q = 1 is a matrix-vector product: one warp per row, lanes read
-//    the row in consecutive 16-byte pieces (coalesced), and a shuffle tree
-//    sums the lanes.  At q > 1 a 32x32 output tile per block: A and x
-//    tiles are staged through shared memory, and each thread keeps four
-//    rows of one column in registers.
+//  * K3 at q = 1 is a GEMV that keeps many bytes in flight: one warp per
+//    row, each lane issues all of its 16-byte loads of a 2048-column
+//    stretch of the row (16 of them, unrolled into registers) before its
+//    first FMA, and the block stages that stretch of x in shared memory
+//    once while those loads are in flight.  At n = 2048 all 2048 warps fit
+//    on the card at once, so the whole matrix is requested in one wave.
+//  * K3 at q > 1 is a register-blocked SGEMM: 128 x 128 output tiles, 256
+//    threads each holding an 8 x 8 micro-tile in registers (rows 16 apart,
+//    two runs of four adjacent columns 64 apart, so a warp's reads of A
+//    are four broadcast addresses and its reads of x 128 contiguous
+//    bytes), A and x tiles of depth 32 in a three-stage
+//    shared-memory ring filled by cp.async (16-byte copies where rows are
+//    16-byte aligned, 4-byte ones otherwise), and split-K: when the output
+//    tiles are fewer than the SMs, K is cut into slices (the wrapper picks
+//    them), each block writes its slice's partial tile to a float32
+//    scratch, and a second kernel adds the slices in order.  Ragged n and
+//    q are masked inside the kernels (zero-filled copies, guarded stores).
 //  * K4 reduces each column over u: a block owns 32 columns, its 16 warps
 //    split the rows, each warp reads 32 consecutive floats of one row per
 //    step (coalesced along v), and a shared-memory pass takes the min of
@@ -31,76 +52,262 @@
 
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
-constexpr int kTileRowsPerThread = 4;  // 32 rows / 8 thread rows
 constexpr int kMinplusWarps = 16;
-constexpr int kGemvWarps = 8;
 
-__global__ void counting_gemv_kernel(const float* __restrict__ a,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ y, int n,
-                                     bool vec) {
+// K3, q = 1
+constexpr int kGemvWarps = 8;
+constexpr int kGemvChunk = 2048;  // columns of one stretch (x in shared)
+constexpr int kGemvVec = kGemvChunk / 4 / 32;  // float4 loads per lane
+constexpr int kGemvScalar = kGemvChunk / 32;   // float loads per lane
+
+// K3, q > 1
+constexpr int kBM = 128;          // output rows of a block
+constexpr int kBN = 128;          // output columns of a block
+constexpr int kBK = 32;           // depth of one stage
+constexpr int kAStride = kBK + 4;  // padded A rows: conflict-free reads
+constexpr int kStages = 3;
+constexpr int kGemmThreads = 256;
+constexpr int kTM = 8;            // rows per thread, 16 apart
+constexpr int kTN = 8;            // columns per thread: 4 + 4, 64 apart
+constexpr int kGemmSmem =
+    kStages * (kBM * kAStride + kBK * kBN) * static_cast<int>(sizeof(float));
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemvWarps * 32) counting_gemv_kernel(
+    const float* __restrict__ a, const float* __restrict__ x,
+    float* __restrict__ y, int n) {
+  __shared__ __align__(16) float xs[kGemvChunk];
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kGemvWarps + (threadIdx.x >> 5);
-  if (row >= n) return;  // uniform across the warp
-  const float* arow = a + static_cast<long long>(row) * n;
+  const bool live = row < n;  // dead warps still stage x and sync
+  const float* arow = a + static_cast<long long>(live ? row : 0) * n;
   float acc = 0.0f;
-  if (vec) {
-    const float4* a4 = reinterpret_cast<const float4*>(arow);
-    const float4* x4 = reinterpret_cast<const float4*>(x);
-    for (int i = lane; i < n / 4; i += 32) {
-      const float4 av = a4[i];
-      const float4 xv = x4[i];
-      acc = fmaf(av.x, xv.x, acc);
-      acc = fmaf(av.y, xv.y, acc);
-      acc = fmaf(av.z, xv.z, acc);
-      acc = fmaf(av.w, xv.w, acc);
+  for (int k0 = 0; k0 < n; k0 += kGemvChunk) {
+    const int len = n - k0 < kGemvChunk ? n - k0 : kGemvChunk;
+    if (kVec) {
+      const float4* a4 = reinterpret_cast<const float4*>(arow + k0);
+      float4 av[kGemvVec];
+#pragma unroll
+      for (int i = 0; i < kGemvVec; ++i) {
+        const int e = lane + 32 * i;
+        av[i] = (live && 4 * e < len) ? __ldg(a4 + e)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      __syncthreads();  // the previous stretch's readers are done with xs
+      const float4* x4 = reinterpret_cast<const float4*>(x + k0);
+      for (int e = threadIdx.x; 4 * e < len; e += blockDim.x)
+        reinterpret_cast<float4*>(xs)[e] = x4[e];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kGemvVec; ++i) {
+        const int e = lane + 32 * i;
+        if (4 * e < len) {
+          const float4 xv = reinterpret_cast<const float4*>(xs)[e];
+          acc = fmaf(av[i].x, xv.x, acc);
+          acc = fmaf(av[i].y, xv.y, acc);
+          acc = fmaf(av[i].z, xv.z, acc);
+          acc = fmaf(av[i].w, xv.w, acc);
+        }
+      }
+    } else {
+      float av[kGemvScalar];
+#pragma unroll
+      for (int i = 0; i < kGemvScalar; ++i) {
+        const int e = lane + 32 * i;
+        av[i] = (live && e < len) ? __ldg(arow + k0 + e) : 0.0f;
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < len; e += blockDim.x) xs[e] = x[k0 + e];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kGemvScalar; ++i) {
+        const int e = lane + 32 * i;
+        if (e < len) acc = fmaf(av[i], xs[e], acc);
+      }
     }
-  } else {
-    for (int i = lane; i < n; i += 32) acc = fmaf(arow[i], x[i], acc);
   }
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_down_sync(0xffffffffu, acc, off);
-  if (lane == 0) y[row] = acc;
+  if (live && lane == 0) y[row] = acc;
 }
 
-__global__ void counting_tile_kernel(const float* __restrict__ a,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ y, int n, int q) {
-  __shared__ float as[kTile][kTile + 1];
-  __shared__ float xs[kTile][kTile + 1];
-  const int tx = threadIdx.x;  // output column within the tile
-  const int ty = threadIdx.y;  // 0..7
-  const int row0 = blockIdx.y * kTile;
-  const int col = blockIdx.x * kTile + tx;
-  float acc[kTileRowsPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < n; k0 += kTile) {
-    for (int r = ty; r < kTile; r += kTile / kTileRowsPerThread) {
-      const int ar = row0 + r;
-      const int ac = k0 + tx;
-      as[r][tx] = (ar < n && ac < n) ? a[static_cast<long long>(ar) * n + ac]
-                                     : 0.0f;
-      const int xr = k0 + r;
-      xs[r][tx] = (xr < n && col < q) ? x[static_cast<long long>(xr) * q + col]
-                                      : 0.0f;
-    }
-    __syncthreads();
+// One block: the (kBM, kBN) output tile at (blockIdx.y, blockIdx.x) over
+// the K slice [blockIdx.z * k_split, +k_split), written to
+// out + blockIdx.z * n * q (the partials of slice z, or the output itself
+// when there is one slice).  kVec: n and q are multiples of 4 and the
+// pointers 16-byte aligned, so every row of A and x starts aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(kGemmThreads) counting_gemm_kernel(
+    const float* __restrict__ a, const float* __restrict__ x,
+    float* __restrict__ out, int n, int q, int k_split) {
+  extern __shared__ __align__(16) float smem[];
+  float* const as0 = smem;                             // [stage][row][k]
+  float* const bs0 = smem + kStages * kBM * kAStride;  // [stage][k][col]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  // a warp covers 4 row groups x 8 column groups, so its A reads are four
+  // broadcast addresses and its x reads 128 contiguous bytes
+  const int ty = (warp >> 1) * 4 + (lane >> 3);  // rows ty + 16 i
+  const int tx = (warp & 1) * 8 + (lane & 7);    // columns 4 tx (+ 64) ..
+  const int row0 = blockIdx.y * kBM;
+  const int col0 = blockIdx.x * kBN;
+  const int kb = blockIdx.z * k_split;
+  const int ke = n < kb + k_split ? n : kb + k_split;
+  const int ktiles = ke > kb ? (ke - kb + kBK - 1) / kBK : 0;
+
+  auto load = [&](int stage, int kt) {
+    const int k0 = kb + kt * kBK;
+    float* at = as0 + stage * kBM * kAStride;
+    float* bt = bs0 + stage * kBK * kBN;
+    if (kVec) {
 #pragma unroll
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float xv = xs[kk][tx];
+      for (int i = 0; i < kBM * kBK / 4 / kGemmThreads; ++i) {
+        const int f = tid + i * kGemmThreads;
+        const int r = f / (kBK / 4);
+        const int c = (f % (kBK / 4)) * 4;
+        const bool ok = row0 + r < n && k0 + c < ke;
+        const float* src =
+            ok ? a + static_cast<long long>(row0 + r) * n + k0 + c : a;
+        sm90::cp_async16(at + r * kAStride + c, src, ok ? 16 : 0);
+      }
 #pragma unroll
-      for (int i = 0; i < kTileRowsPerThread; ++i)
-        acc[i] = fmaf(as[ty + i * (kTile / kTileRowsPerThread)][kk], xv,
-                      acc[i]);
+      for (int i = 0; i < kBK * kBN / 4 / kGemmThreads; ++i) {
+        const int f = tid + i * kGemmThreads;
+        const int r = f / (kBN / 4);
+        const int c = (f % (kBN / 4)) * 4;
+        const bool ok = k0 + r < ke && col0 + c < q;
+        const float* src =
+            ok ? x + static_cast<long long>(k0 + r) * q + col0 + c : x;
+        sm90::cp_async16(bt + r * kBN + c, src, ok ? 16 : 0);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < kBM * kBK / kGemmThreads; ++i) {
+        const int f = tid + i * kGemmThreads;
+        const int r = f / kBK;
+        const int c = f % kBK;
+        const bool ok = row0 + r < n && k0 + c < ke;
+        const float* src =
+            ok ? a + static_cast<long long>(row0 + r) * n + k0 + c : a;
+        sm90::cp_async4(at + r * kAStride + c, src, ok ? 4 : 0);
+      }
+#pragma unroll
+      for (int i = 0; i < kBK * kBN / kGemmThreads; ++i) {
+        const int f = tid + i * kGemmThreads;
+        const int r = f / kBN;
+        const int c = f % kBN;
+        const bool ok = k0 + r < ke && col0 + c < q;
+        const float* src =
+            ok ? x + static_cast<long long>(k0 + r) * q + col0 + c : x;
+        sm90::cp_async4(bt + r * kBN + c, src, ok ? 4 : 0);
+      }
     }
-    __syncthreads();
+  };
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < ktiles) load(s, s);
+    sm90::cp_async_commit();
   }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    sm90::cp_async_wait<kStages - 2>();
+    __syncthreads();  // tile kt landed; stage (kt - 1) % kStages is free
+    if (kt + kStages - 1 < ktiles)
+      load((kt + kStages - 1) % kStages, kt + kStages - 1);
+    sm90::cp_async_commit();
+    const float* at = as0 + (kt % kStages) * kBM * kAStride;
+    const float* bt = bs0 + (kt % kStages) * kBK * kBN;
 #pragma unroll
-  for (int i = 0; i < kTileRowsPerThread; ++i) {
-    const int r = row0 + ty + i * (kTile / kTileRowsPerThread);
-    if (r < n && col < q) y[static_cast<long long>(r) * q + col] = acc[i];
+    for (int k4 = 0; k4 < kBK; k4 += 4) {
+      float4 av[kTM];
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+        av[i] = *reinterpret_cast<const float4*>(
+            at + (ty + 16 * i) * kAStride + k4);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* brow = bt + (k4 + kk) * kBN + 4 * tx;
+        const float4 b0 = *reinterpret_cast<const float4*>(brow);
+        const float4 b1 = *reinterpret_cast<const float4*>(brow + 64);
+        const float bv[kTN] = {b0.x, b0.y, b0.z, b0.w,
+                               b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) {
+          const float ak = kk == 0 ? av[i].x
+                         : kk == 1 ? av[i].y
+                         : kk == 2 ? av[i].z
+                                   : av[i].w;
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(ak, bv[j], acc[i][j]);
+        }
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+
+  float* o = out + static_cast<long long>(blockIdx.z) * n * q;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= n) continue;
+    float* orow = o + static_cast<long long>(r) * q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = col0 + 4 * tx + 64 * h;
+      if (kVec) {
+        if (c < q)
+          *reinterpret_cast<float4*>(orow + c) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1], acc[i][4 * h + 2],
+                          acc[i][4 * h + 3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (c + j < q) orow[c + j] = acc[i][4 * h + j];
+      }
+    }
+  }
+}
+
+// out = sum over the slices of part, slice 0 first (a fixed order);
+// kVec: total is a multiple of 4 and the pointers 16-byte aligned
+template <bool kVec>
+__global__ void split_sum_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, long long total,
+                                 int splits) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (kVec) {
+    const float4* p4 = reinterpret_cast<const float4*>(part);
+    const long long total4 = total / 4;
+    for (long long i = first; i < total4; i += stride) {
+      float4 s = p4[i];
+      for (int z = 1; z < splits; ++z) {
+        const float4 v = p4[z * total4 + i];
+        s.x += v.x;
+        s.y += v.y;
+        s.z += v.z;
+        s.w += v.w;
+      }
+      reinterpret_cast<float4*>(out)[i] = s;
+    }
+  } else {
+    for (long long i = first; i < total; i += stride) {
+      float s = part[i];
+      for (int z = 1; z < splits; ++z) s += part[z * total + i];
+      out[i] = s;
+    }
   }
 }
 
@@ -127,23 +334,57 @@ __global__ void minplus_spmv_kernel(const float* __restrict__ adj,
 
 }  // namespace
 
+// K3.  q = 1 runs the GEMV.  q > 1 runs the SGEMM over `splits` K slices
+// of `k_split` columns each (a multiple of kBK; the wrapper picks both);
+// with more than one slice the partials go to `scratch` (splits * n * q
+// floats) and a second kernel adds them into y.
 extern "C" int counting_spmm_launch(const float* a, const float* x,
-                                    float* y, int n, int q,
+                                    float* y, float* scratch, int n, int q,
+                                    int splits, int k_split,
                                     cudaStream_t stream) {
   if (n <= 0 || q <= 0) return 0;
+  const bool aligned = reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+                       reinterpret_cast<unsigned long long>(x) % 16 == 0 &&
+                       reinterpret_cast<unsigned long long>(y) % 16 == 0;
   if (q == 1) {
-    // 16-byte loads need every row start and x aligned to 16 bytes
-    const bool vec = n % 4 == 0 &&
-                     reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
-                     reinterpret_cast<unsigned long long>(x) % 16 == 0;
     const int blocks = (n + kGemvWarps - 1) / kGemvWarps;
-    counting_gemv_kernel<<<blocks, kGemvWarps * 32, 0, stream>>>(a, x, y, n,
-                                                                 vec);
-  } else {
-    const dim3 grid((q + kTile - 1) / kTile, (n + kTile - 1) / kTile);
-    const dim3 block(kTile, kTile / kTileRowsPerThread);
-    counting_tile_kernel<<<grid, block, 0, stream>>>(a, x, y, n, q);
+    if (aligned && n % 4 == 0)
+      counting_gemv_kernel<true><<<blocks, kGemvWarps * 32, 0, stream>>>(
+          a, x, y, n);
+    else
+      counting_gemv_kernel<false><<<blocks, kGemvWarps * 32, 0, stream>>>(
+          a, x, y, n);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (splits < 1 || k_split % kBK != 0 ||
+      static_cast<long long>(splits) * k_split < n)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* dst = splits > 1 ? scratch : y;
+  const bool vec = aligned && n % 4 == 0 && q % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(dst) % 16 == 0;
+  // above 48 KB of shared memory only when asked for (per device)
+  void (*gemm)(const float*, const float*, float*, int, int, int) =
+      vec ? counting_gemm_kernel<true> : counting_gemm_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((q + kBN - 1) / kBN, (n + kBM - 1) / kBM, splits);
+  gemm<<<grid, kGemmThreads, kGemmSmem, stream>>>(a, x, dst, n, q, k_split);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const long long total = static_cast<long long>(n) * q;
+  const bool vec4 = total % 4 == 0 &&
+                    reinterpret_cast<unsigned long long>(y) % 16 == 0 &&
+                    reinterpret_cast<unsigned long long>(scratch) % 16 == 0;
+  const long long items = vec4 ? total / 4 : total;
+  const long long want = (items + 255) / 256;
+  const int blocks = static_cast<int>(want < 1024 ? want : 1024);
+  if (vec4)
+    split_sum_kernel<true><<<blocks, 256, 0, stream>>>(scratch, y, total,
+                                                      splits);
+  else
+    split_sum_kernel<false><<<blocks, 256, 0, stream>>>(scratch, y, total,
+                                                       splits);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the attention kernels:
-// 16-byte cp.async copies with zero fill, mbarriers and TMA tile loads,
+// Hopper (sm_90a) building blocks shared by the attention kernels and the
+// counting SpMM: 16- and 4-byte cp.async copies with zero fill, mbarriers
+// and TMA tile loads,
 // warpgroup matrix multiplies (`wgmma.mma_async`, bfloat16 in, float32
 // accumulate) and their shared-memory descriptors.
 //
@@ -35,6 +36,14 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared (through L1); zero when `src_bytes` is 0
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes)
                : "memory");
 }

@@ -174,7 +174,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
         out.data_ptr(), *ptrs, B, S, H, Hkv, D,
         int(q.dtype == torch.bfloat16), scale, splits, chunk,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q.device))
     _build.check(status, "decode_attention")
     launches += 1
     return out

@@ -132,7 +132,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     status = _launcher(bf16)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Lq, Lk,
         H, Hkv, D, scale, int(causal), int(window or 0),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _build.stream(q.device))
     _build.check(status, "flash_attention_sm90" if bf16 else
                  "flash_attention")
     if bf16:

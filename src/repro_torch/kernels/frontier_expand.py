@@ -148,7 +148,7 @@ def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
         paths.data_ptr(), begin.data_ptr(), end.data_ptr(), dst.data_ptr(),
         meta.data_ptr(), vnew.data_ptr(), emit.data_ptr(), cont.data_ptr(),
         counters.data_ptr(), C, k1, max_deg, dst.shape[0],
-        torch.cuda.current_stream(paths.device).cuda_stream)
+        _build.stream(paths.device))
     _build.check(status, "frontier_masks")
     launches += 1
     return vnew, emit, cont, counters
@@ -300,7 +300,7 @@ def frontier_fused_masks(paths: torch.Tensor, rank: torch.Tensor,
         paths.data_ptr(), rank.data_ptr(), tvec.data_ptr(),
         depthv.data_ptr(), table.data_ptr(), vnew.data_ptr(),
         emit.data_ptr(), cont.data_ptr(), counters.data_ptr(), C, k1,
-        max_deg, m, torch.cuda.current_stream(paths.device).cuda_stream)
+        max_deg, m, _build.stream(paths.device))
     _build.check(status, "frontier_fused_masks")
     fused_launches += 1
     return vnew, emit, cont, counters

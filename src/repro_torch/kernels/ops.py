@@ -13,31 +13,41 @@ work deque (K2) and the dense BFS (DESIGN.md §9).
   member's emit and continue rows come out as one contiguous segment in
   its solo emission order.
 * ``frontier_deque_round`` — K2, the counterpart of ``repro``'s
-  ``ops._deque_round_jit``: ``round_pops`` iterations of in-arena
-  pop → K1 → compact → push over a device arena, with one host sync per
-  round (the caller's).  Where ``repro`` exits a ``lax.while_loop``, each
-  iteration here computes the loop condition on the device and masks its
-  own effects once it fails, so later iterations change nothing.  The
-  geometry, the pop sequence and every returned array equal ``repro``'s.
-  The round updates ``arena``, ``meta_depth`` and ``meta_len`` in place
-  (the arena is the largest buffer of a query; ``repro`` copies it).
+  ``ops._deque_round_jit``: up to ``round_pops`` in-arena pop → K1 →
+  compact → push iterations over a device arena, with one host sync per
+  round (the caller's).  On the card it is one launch of the persistent
+  kernel of ``csrc/deque_round.cu``, which runs ``repro``'s while-loop
+  itself and leaves it when the loop condition fails; on the CPU it is
+  the plain version, ``frontier_deque_round_plain``: a torch loop of
+  ``round_pops`` iterations, each of which computes the loop condition
+  and masks its own effects once it fails.  Both update ``arena``,
+  ``meta_depth`` and ``meta_len`` in place (the arena is the largest
+  buffer of a query; ``repro`` copies it).  The geometry, the pop
+  sequence and the regions the host reads back (``DequeConfig``) equal
+  ``repro``'s; the plain version also equals it array for array.
 * ``bfs_dense`` — k min-plus relaxations (K4) from one source.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
-from typing import Callable
+from typing import Optional
 
 import numpy as np
 import torch
 
+from . import _build
 from .frontier_expand import (PAD, frontier_fused_masks, frontier_masks,
                               frontier_masks_plain)
 from .semiring_spmm import minplus_spmv
 
-# deque rounds run on a CUDA device since process start (one per call,
-# as ``repro`` counts one dispatch per round)
+# launches of the deque-round kernel since process start (one per round
+# on a CUDA device, as ``repro`` counts one dispatch per round)
 deque_rounds: int = 0
+
+# the last CUDA round's scalars ([top, n_chunks, n_emit, pops, counters,
+# loop iterations]); read by ``last_round_iterations``
+_last_scalars: Optional[torch.Tensor] = None
 
 # frontier-expansion dispatches on any device since process start
 _dispatch_count: int = 0
@@ -227,7 +237,10 @@ class DequeConfig:
     pushes scatter continue pieces back so the host driver's reversed
     piece order is kept (piece 0 topmost).  Rows past ``arena_cap`` and
     meta slots past ``max_chunks`` are scratch targets of masked
-    scatters and are never read back.
+    scatters and are never read back.  The CUDA round writes only what
+    the host reads back: ``arena[:arena_cap]``, meta slots below
+    ``max_chunks``, ``emitbuf[:n_emit]`` / ``emitlen[:n_emit]`` and the
+    scalars; the scratch regions hold whatever they held.
     """
     k1: int              # path width k + 1
     chunk_size: int      # the driver's chunk split (cs)
@@ -277,16 +290,11 @@ def frontier_deque_init(root: np.ndarray, *, cfg: DequeConfig,
     return arena, meta_depth, meta_len, one, one.clone()
 
 
-MasksFn = Callable[..., tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                              torch.Tensor]]
-
-
 def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
                  meta_len: torch.Tensor, top: torch.Tensor,
                  n_chunks: torch.Tensor, begin: torch.Tensor,
                  end: torch.Tensor, dst: torch.Tensor, t: int, *,
-                 cfg: DequeConfig, masks: MasksFn
-                 ) -> tuple[torch.Tensor, ...]:
+                 cfg: DequeConfig) -> tuple[torch.Tensor, ...]:
     """``round_pops`` masked pop → masks → compact → push iterations."""
     dev = arena.device
     cs, cap, B, k1 = cfg.chunk_size, cfg.cap, cfg.block_rows, cfg.k1
@@ -325,8 +333,8 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
         paths = torch.where(((rowid < clen) & active)[:, None], block, PAD)
         depth_rows = cdepth.expand(paths.shape[0])
         meta = torch.stack([cdepth, t_dev])
-        vnew, emit, cont, ctr1 = masks(paths, begin, end, dst, meta,
-                                       max_deg=cfg.max_deg)
+        vnew, emit, cont, ctr1 = frontier_masks_plain(
+            paths, begin, end, dst, meta, max_deg=cfg.max_deg)
         ctr = ctr + ctr1                       # all-PAD rows add zeros
         vflat = vnew.view(-1)
 
@@ -370,6 +378,90 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
             pops.to(torch.int32))
 
 
+def _deque_lib() -> ctypes.CDLL:
+    lib = _build.load("deque_round")
+    fn = lib.deque_round_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check_deque_args(arena, meta_depth, meta_len, top, n_chunks, begin,
+                      end, dst, cfg: DequeConfig) -> None:
+    dev = arena.device
+    named = (("arena", arena), ("meta_depth", meta_depth),
+             ("meta_len", meta_len), ("top", top), ("n_chunks", n_chunks),
+             ("begin", begin), ("end", end), ("dst", dst))
+    for name, x in named:
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, arena on {dev}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if arena.shape != (cfg.arena_rows, cfg.k1):
+        raise ValueError(f"arena must be ({cfg.arena_rows}, {cfg.k1}), got "
+                         f"{tuple(arena.shape)}")
+    slots = cfg.max_chunks + cfg.max_pieces
+    if meta_depth.shape != (slots,) or meta_len.shape != (slots,):
+        raise ValueError(f"meta_depth and meta_len must be ({slots},)")
+    if top.numel() != 1 or n_chunks.numel() != 1:
+        raise ValueError("top and n_chunks must hold one value each")
+    if end.dim() != 2 or end.shape != (begin.shape[0], cfg.k1):
+        raise ValueError(f"end must be (n, k+1) = ({begin.shape[0]}, "
+                         f"{cfg.k1}), got {tuple(end.shape)}")
+    if dst.dim() != 1 or dst.shape[0] < 1:
+        raise ValueError("dst needs at least one element")
+
+
+def _deque_round_cuda(arena: torch.Tensor, meta_depth: torch.Tensor,
+                      meta_len: torch.Tensor, top: torch.Tensor,
+                      n_chunks: torch.Tensor, begin: torch.Tensor,
+                      end: torch.Tensor, dst: torch.Tensor, t: int,
+                      cfg: DequeConfig) -> tuple[torch.Tensor, ...]:
+    """One launch of the persistent round kernel (``csrc/deque_round.cu``).
+    The emit buffers are left uninitialised: the kernel writes their first
+    ``n_emit`` rows, the only ones read."""
+    global deque_rounds, _last_scalars
+    dev = arena.device
+    # one block per SM, resident for the whole round
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    rows = cfg.emit_cap + cfg.cap
+    emitbuf = torch.empty((rows, cfg.k1), dtype=torch.int32, device=dev)
+    emitlen = torch.empty(rows, dtype=torch.int32, device=dev)
+    # [16 scalars | row counts (B, 2) | block totals (blocks, 2) | row
+    # copies (B, k1)]
+    B = cfg.block_rows
+    buf = torch.empty(16 + 2 * B + 2 * blocks + B * cfg.k1,
+                      dtype=torch.int32, device=dev)
+    scal = buf[:16]
+    status = _deque_lib().deque_round_launch(
+        arena.data_ptr(), meta_depth.data_ptr(), meta_len.data_ptr(),
+        top.data_ptr(), n_chunks.data_ptr(), begin.data_ptr(),
+        end.data_ptr(), dst.data_ptr(), dst.shape[0], t, emitbuf.data_ptr(),
+        emitlen.data_ptr(), scal.data_ptr(), buf[16:].data_ptr(), blocks,
+        cfg.k1, cfg.chunk_size, B, cfg.max_deg, cfg.cap, cfg.arena_cap,
+        cfg.emit_cap, cfg.max_chunks, cfg.max_pieces, cfg.round_pops,
+        _build.stream(dev))
+    _build.check(status, "frontier_deque_round")
+    deque_rounds += 1
+    _last_scalars = scal
+    return (arena, meta_depth, meta_len, scal[0], scal[1], emitbuf, emitlen,
+            scal[2], scal[4:8], scal[3])
+
+
+def last_round_iterations() -> int:
+    """Loop iterations of the last CUDA round: its pops plus the last,
+    failing evaluation of the loop condition (reads the card; for the
+    tests and chip_smoke.py)."""
+    if _last_scalars is None:
+        raise RuntimeError("no deque round has run on a CUDA device")
+    return int(_last_scalars[8].item())
+
+
 def frontier_deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
                          meta_len: torch.Tensor, top: torch.Tensor,
                          n_chunks: torch.Tensor, begin: torch.Tensor,
@@ -378,24 +470,31 @@ def frontier_deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
     """One host round trip of the device-resident deque.
 
     Runs up to ``cfg.round_pops`` pop → expand → push iterations on the
-    state's device, with the frontier kernel (K1) on a CUDA device and
-    its plain version on the CPU, and returns ``(arena, meta_depth,
-    meta_len, top, n_chunks, emitbuf, emitlen, n_emit, counters, pops)``
-    as ``repro``'s ``ops.frontier_deque_round`` does.  The first
-    ``n_emit`` rows of ``emitbuf`` are the paths completed this round
-    (``emitlen`` their hop counts), ``counters`` the summed (4,) Fig.-6
-    vector and ``pops`` the chunks consumed.  ``pops == 0`` with
-    ``n_chunks > 0`` is a capacity stall: the caller rebuilds its host
-    work list from ``arena[:top]`` and the bottom ``n_chunks`` meta
-    slots.  The input state is updated in place.
+    state's device and returns ``(arena, meta_depth, meta_len, top,
+    n_chunks, emitbuf, emitlen, n_emit, counters, pops)`` as ``repro``'s
+    ``ops.frontier_deque_round`` does.  The first ``n_emit`` rows of
+    ``emitbuf`` are the paths completed this round (``emitlen`` their hop
+    counts), ``counters`` the summed (4,) Fig.-6 vector and ``pops`` the
+    chunks consumed.  ``pops == 0`` with ``n_chunks > 0`` is a capacity
+    stall: the caller rebuilds its host work list from ``arena[:top]`` and
+    the bottom ``n_chunks`` meta slots.  The input state is updated in
+    place.
+
+    CUDA tensors launch the persistent kernel of ``csrc/deque_round.cu``
+    once (and raise if the launch fails); CPU tensors take
+    ``frontier_deque_round_plain``.  On the card only the regions
+    ``DequeConfig`` names are written.
     """
-    global deque_rounds, _dispatch_count
-    out = _deque_round(arena, meta_depth, meta_len, top, n_chunks, begin,
-                       end, dst, t, cfg=cfg, masks=frontier_masks)
-    if arena.is_cuda:
-        deque_rounds += 1
+    global _dispatch_count
+    _check_deque_args(arena, meta_depth, meta_len, top, n_chunks, begin,
+                      end, dst, cfg)
     _dispatch_count += 1
-    return out
+    if not arena.is_cuda:
+        return frontier_deque_round_plain(arena, meta_depth, meta_len, top,
+                                          n_chunks, begin, end, dst, t,
+                                          cfg=cfg)
+    return _deque_round_cuda(arena, meta_depth, meta_len, top, n_chunks,
+                             begin, end, dst, t, cfg)
 
 
 def frontier_deque_round_plain(arena: torch.Tensor, meta_depth: torch.Tensor,
@@ -404,7 +503,9 @@ def frontier_deque_round_plain(arena: torch.Tensor, meta_depth: torch.Tensor,
                                end: torch.Tensor, dst: torch.Tensor, t: int,
                                *, cfg: DequeConfig
                                ) -> tuple[torch.Tensor, ...]:
-    """``frontier_deque_round`` with the plain frontier masks on any
-    device: the version the CUDA round is held to on the card."""
+    """``frontier_deque_round`` in plain PyTorch on any device: a loop of
+    ``round_pops`` masked iterations around the plain frontier masks, every
+    returned array equal to ``repro``'s.  The CUDA round is held to it on
+    the card, on the regions the host reads back."""
     return _deque_round(arena, meta_depth, meta_len, top, n_chunks, begin,
-                        end, dst, t, cfg=cfg, masks=frontier_masks_plain)
+                        end, dst, t, cfg=cfg)

@@ -43,6 +43,28 @@ def counting_spmm_plain(adj: torch.Tensor,
     return adj.to(torch.float32) @ counts.to(torch.float32)
 
 
+# output tile and K step of the q > 1 kernel (csrc/semiring.cu)
+GEMM_TILE_ROWS = 128
+GEMM_TILE_COLS = 128
+GEMM_K_STEP = 32
+
+
+def counting_splits(n: int, q: int, sms: int) -> tuple[int, int]:
+    """``(splits, k_split)``: the K slices of the q > 1 kernel at (n, q) on
+    a card of ``sms`` SMs.  As many slices as keep the output tiles times
+    the slices within the SM count (one block per SM, no second wave),
+    each slice ``k_split`` columns deep, a multiple of the K step and at
+    least 128 when there is more than one; the slices cover [0, n) and
+    none is empty."""
+    def cdiv(a: int, b: int) -> int:
+        return -(-a // b)
+
+    tiles = cdiv(n, GEMM_TILE_ROWS) * cdiv(q, GEMM_TILE_COLS)
+    splits = max(1, min(sms // tiles, n // 128))
+    k_split = cdiv(cdiv(n, splits), GEMM_K_STEP) * GEMM_K_STEP
+    return cdiv(n, k_split), k_split
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("semiring")
     if lib.minplus_spmv_launch.argtypes is None:
@@ -51,8 +73,7 @@ def _lib() -> ctypes.CDLL:
                                      ctypes.c_void_p])
         lib.minplus_spmv_launch.restype = ctypes.c_int
         lib.counting_spmm_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int,
-                                     ctypes.c_void_p])
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.counting_spmm_launch.restype = ctypes.c_int
     return lib
 
@@ -82,14 +103,18 @@ def minplus_spmv(adj: torch.Tensor, dist: torch.Tensor, *,
     out = torch.empty_like(dist)
     status = _lib().minplus_spmv_launch(
         adj.data_ptr(), dist.data_ptr(), out.data_ptr(), n, inf,
-        torch.cuda.current_stream(adj.device).cuda_stream)
+        _build.stream(adj.device))
     _build.check(status, "minplus_spmv")
     minplus_launches += 1
     return out
 
 
 def counting_spmm(adj: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """One walk-count DP level: (n, n) float32 counts @ (n, q) float32."""
+    """One walk-count DP level: (n, n) float32 counts @ (n, q) float32.
+
+    On the card, q = 1 (the DP's shape) takes the GEMV kernel; q > 1 the
+    SGEMM, split along K by ``counting_splits`` with the partials in a
+    scratch this wrapper allocates and added in a fixed order."""
     global counting_launches
     n, q = counts.shape
     if adj.shape != (n, n):
@@ -99,9 +124,18 @@ def counting_spmm(adj: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     if not adj.is_cuda:
         return counting_spmm_plain(adj, counts)
     out = torch.empty((n, q), dtype=torch.float32, device=adj.device)
+    splits, k_split, scratch = 1, n, 0
+    if q > 1:
+        sms = torch.cuda.get_device_properties(
+            adj.device).multi_processor_count
+        splits, k_split = counting_splits(n, q, sms)
+        if splits > 1:
+            part = torch.empty((splits, n, q), dtype=torch.float32,
+                               device=adj.device)
+            scratch = part.data_ptr()
     status = _lib().counting_spmm_launch(
-        adj.data_ptr(), counts.data_ptr(), out.data_ptr(), n, q,
-        torch.cuda.current_stream(adj.device).cuda_stream)
+        adj.data_ptr(), counts.data_ptr(), out.data_ptr(), scratch, n, q,
+        splits, k_split, _build.stream(adj.device))
     _build.check(status, "counting_spmm")
     counting_launches += 1
     return out

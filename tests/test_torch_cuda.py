@@ -11,6 +11,8 @@ softmax sums in another order) and 2e-2 in bfloat16, on O(1) inputs.
 The plain versions themselves are held against the JAX package's Pallas
 kernels by tests/test_torch_kernels.py and tests/test_torch_attention.py.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +112,44 @@ def test_cuda_counting_equals_plain(cuda, n, q):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 2000, 2048])
+@pytest.mark.parametrize("q", [1, 2, 3, 33, 128, 129])
+def test_cuda_counting_ragged_equals_plain(cuda, n, q):
+    """Ragged n and q: the GEMV (q = 1), the 4-byte and 16-byte copy
+    paths of the SGEMM, one and several K slices."""
+    rng = np.random.default_rng(7 * n + q)
+    adj = torch.from_numpy(rng.integers(0, 3, (n, n)).astype(np.float32))
+    counts = torch.from_numpy(rng.integers(0, 60, (n, q)).astype(np.float32))
+    got = sr.counting_spmm(adj.to(cuda), counts.to(cuda))
+    want = sr.counting_spmm_plain(adj, counts)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,q", [(2000, 1), (2048, 1), (2048, 128),
+                                 (2000, 129)])
+def test_cuda_counting_exact_at_2_24_minus_1(cuda, n, q):
+    """Row 0 of every column sums to exactly 2^24 - 1, the largest value
+    the DP keeps on the card: every partial sum stays exact."""
+    top = 2 ** 24 - 1
+    rng = np.random.default_rng(n + q)
+    # 0/1 edge counts and columns that sum to 2^24 - 1: row 0 (all ones)
+    # reaches it, every other row stays below
+    adj = rng.integers(0, 2, (n, n)).astype(np.float32)
+    adj[0] = 1.0
+    counts = np.full((n, q), top // n, np.float32)
+    counts[0] += top - n * (top // n)
+    want = sr.counting_spmm_plain(torch.from_numpy(adj),
+                                  torch.from_numpy(counts))
+    exact = adj.astype(np.float64) @ counts.astype(np.float64)
+    assert (want[0] == top).all()
+    np.testing.assert_array_equal(want.numpy(), exact)
+    got = sr.counting_spmm(torch.from_numpy(adj).to(cuda),
+                           torch.from_numpy(counts).to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [128, 333, 2048])
 def test_cuda_minplus_equals_plain(cuda, n):
     rng = np.random.default_rng(n)
@@ -123,25 +163,126 @@ def test_cuda_minplus_equals_plain(cuda, n):
     assert torch.equal(got, want)
 
 
+def _deque_contract_equal(got, want, cfg):
+    """A CUDA round against the plain round on the regions the host
+    reads back (``DequeConfig``): the scalars, ``arena[:arena_cap]``, meta
+    slots below ``max_chunks``, ``emitbuf``/``emitlen[:n_emit]``.  The
+    kernel leaves the scratch regions alone; the plain version's masked
+    scatters write there."""
+    arena, md, ml, top, nc, eb, el, ne, ctr, pops = got
+    warena, wmd, wml, wtop, wnc, web, wel, wne, wctr, wpops = want
+    for a, b in ((top, wtop), (nc, wnc), (ne, wne), (ctr, wctr),
+                 (pops, wpops)):
+        assert a.dtype == b.dtype == torch.int32
+        assert torch.equal(a.reshape(-1), b.reshape(-1))
+    assert torch.equal(arena[:cfg.arena_cap], warena[:cfg.arena_cap])
+    assert torch.equal(md[:cfg.max_chunks], wmd[:cfg.max_chunks])
+    assert torch.equal(ml[:cfg.max_chunks], wml[:cfg.max_chunks])
+    n = int(ne)
+    assert torch.equal(eb[:n], web[:n])
+    assert torch.equal(el[:n], wel[:n])
+
+
+def _deque_rounds_vs_plain(cuda, idx, cfg, max_rounds=10_000):
+    """Rounds from a fresh deque until it empties or stalls, kernel and
+    plain side by side; each round is one launch and at most pops + 1
+    loop iterations.  Returns the pops of every round."""
+    root = np.full(idx.k + 1, PAD, np.int32)
+    root[0] = idx.s
+    dev = idx.device_arrays()
+    s1 = list(ops.frontier_deque_init(root, cfg=cfg, device=cuda))
+    s2 = [x.clone() for x in s1]
+    pops_seen = []
+    for _ in range(max_rounds):
+        before = ops.deque_rounds
+        got = ops.frontier_deque_round(*s1, dev.begin, dev.end, dev.dst,
+                                       idx.t, cfg=cfg)
+        assert ops.deque_rounds == before + 1
+        want = ops.frontier_deque_round_plain(*s2, dev.begin, dev.end,
+                                              dev.dst, idx.t, cfg=cfg)
+        _deque_contract_equal(got, want, cfg)
+        pops = int(got[9])
+        assert ops.last_round_iterations() == pops + 1
+        pops_seen.append(pops)
+        if int(got[4]) == 0 or pops == 0:
+            break
+        s1, s2 = list(got[:5]), list(want[:5])
+    return pops_seen
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("chunk_size,round_pops", [(5, 3), (16, 64)])
+@pytest.mark.parametrize("chunk_size,round_pops", [(5, 3), (16, 64), (1, 1)])
 def test_cuda_deque_round_equals_plain(cuda, chunk_size, round_pops):
     idx = build_index(erdos_renyi(40, 4.0, seed=7), 0, 39, 4, device=cuda)
     max_deg = int((idx.fwd_end[:, idx.k] - idx.fwd_begin).max(initial=0))
     cfg = ops.deque_config(idx.k + 1, chunk_size, max_deg, round_pops)
+    pops = _deque_rounds_vs_plain(cuda, idx, cfg)
+    assert pops[-1] > 0 and sum(pops) >= 2
+    assert max(pops) <= round_pops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_size", [5, 16])
+def test_cuda_deque_round_capacity_stall_equals_plain(cuda, chunk_size):
+    """An arena one push too small: the round stops on the capacity
+    guard (zero pops with chunks left) exactly where the plain one does."""
+    idx = build_index(erdos_renyi(30, 6.0, seed=5), 0, 29, 5, device=cuda)
+    max_deg = int((idx.fwd_end[:, idx.k] - idx.fwd_begin).max(initial=0))
+    cfg = ops.deque_config(idx.k + 1, chunk_size, max_deg)
+    cfg = dataclasses.replace(cfg, arena_cap=cfg.cap + 2,
+                              arena_rows=2 * cfg.cap + 2)
+    pops = _deque_rounds_vs_plain(cuda, idx, cfg)
+    assert pops[-1] == 0, "the capacity guard never tripped"
+
+
+@pytest.mark.cuda
+def test_cuda_deque_round_empty_deque(cuda):
+    idx = build_index(erdos_renyi(40, 4.0, seed=7), 0, 39, 4, device=cuda)
+    max_deg = int((idx.fwd_end[:, idx.k] - idx.fwd_begin).max(initial=0))
+    cfg = ops.deque_config(idx.k + 1, 16, max_deg)
     root = np.full(idx.k + 1, PAD, np.int32)
     root[0] = idx.s
     dev = idx.device_arrays()
-    s1 = ops.frontier_deque_init(root, cfg=cfg, device=cuda)
-    s2 = [x.clone() for x in s1]
-    for _ in range(2):
-        out = ops.frontier_deque_round(*s1, dev.begin, dev.end, dev.dst,
-                                       idx.t, cfg=cfg)
-        want = ops.frontier_deque_round_plain(*s2, dev.begin, dev.end,
-                                              dev.dst, idx.t, cfg=cfg)
-        for a, b in zip(out, want):
-            assert torch.equal(a, b)
-        s1, s2 = out[:5], want[:5]
+    state = list(ops.frontier_deque_init(root, cfg=cfg, device=cuda))
+    state[4] = torch.zeros((), dtype=torch.int32, device=cuda)
+    plain = [x.clone() for x in state]
+    before = ops.deque_rounds
+    got = ops.frontier_deque_round(*state, dev.begin, dev.end, dev.dst,
+                                   idx.t, cfg=cfg)
+    assert ops.deque_rounds == before + 1
+    want = ops.frontier_deque_round_plain(*plain, dev.begin, dev.end,
+                                          dev.dst, idx.t, cfg=cfg)
+    _deque_contract_equal(got, want, cfg)
+    assert int(got[9]) == 0 and int(got[7]) == 0 and int(got[3]) == 1
+    assert not got[8].any()
+    assert ops.last_round_iterations() == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("graph,s,t,k", [
+    ("erdos_renyi", 0, 299, 5), ("power_law", 1104, 997, 4)])
+def test_cuda_resident_query_equals_host(cuda, monkeypatch, graph, s, t, k):
+    """The whole resident walk on the card (one kernel launch per round)
+    equals the host backend: paths in order, counts, Fig.-6 stats and
+    chunks, for full paths and for count_only."""
+    monkeypatch.delenv("REPRO_DEVICE_DEQUE", raising=False)
+    g = erdos_renyi(300, 6.0, seed=4) if graph == "erdos_renyi" \
+        else power_law(2000, 6.0, seed=3)
+    idx = build_index(g, s, t, k, device=cuda)
+    for chunk_size in (7, 256):
+        for count_only in (False, True):
+            before = ops.deque_rounds
+            got = enumerate_paths_idx(idx, backend="device",
+                                      chunk_size=chunk_size,
+                                      count_only=count_only, device=cuda)
+            assert ops.deque_rounds > before, "the resident deque never ran"
+            want = enumerate_paths_idx(idx, backend="host",
+                                       chunk_size=chunk_size,
+                                       count_only=count_only, device=cuda)
+            assert got.count == want.count > 0
+            assert got.stats == want.stats
+            np.testing.assert_array_equal(got.paths, want.paths)
+            np.testing.assert_array_equal(got.lengths, want.lengths)
 
 
 @pytest.mark.cuda
