@@ -20,7 +20,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    deque round, one launch of its persistent kernel) is compared on the
    regions the host reads back (``deque_contract``), each timed call starts
    from a fresh state restored outside the timed window, and the line
-   gives its launches and loop iterations; K2 and K3 also give
+   gives its launches and loop iterations; K1, K2 and K3 also give
    ``device_ms``, the card's part of a call.
 3. ``large``   — the main path at scale: ``erdos_renyi(n, 16.0)`` held on
    the card, queries at k = 8 through
@@ -46,8 +46,8 @@ Phases, one JSON line each (``{"phase": ...}``):
    the small graph's paths against the recursive oracle.
 7. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
-   causal, windowed (2048), and with Lq < Lk, each in float32 (the SIMT
-   kernel) and bfloat16 (the wgmma kernel); K7
+   causal, windowed (2048), and with Lq < Lk, each in float32 (the
+   split-TF32 kernel) and bfloat16 (the wgmma kernel); K7
    over a long cache (B=16, S=32768, lengths from the seed in [S/2, S])
    in float32 and bfloat16.  Each within its tolerance (2e-5 in float32,
    2e-2 in bfloat16: the online softmax sums in another order; bfloat16
@@ -58,7 +58,9 @@ Phases, one JSON line each (``{"phase": ...}``):
    (``ms`` per call as a caller sees it, ``device_ms`` the card's part
    with the launches queued ahead) beside its plain version,
    ``scaled_dot_product_attention`` as the one-call yardstick, and its
-   bound (bfloat16 operations over 989 TFLOP/s, float32 over 67).
+   bound (bfloat16 operations over 989 TFLOP/s; K6 in float32 three TF32
+   products per operation over 495 TFLOP/s, with ``simt_bound_ms``, its
+   operations over the 67 TFLOP/s of float32 FMAs, beside it).
 8. ``lm``      — the LM serving path at full width and depth:
    ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
    of 128, vocab 92544) in float32 with random weights from the seed.
@@ -89,11 +91,14 @@ The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 8 and just before phase
 10, each read just after its phase.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
-line).  Last, the script prints the ``kernels`` line (K1–K7, K6 as its
-two kernels), the card's name and power limit as nvidia-smi gives them,
-and the ``ok`` line.  Any failed check exits non-zero before
-those lines.  Without a CUDA device, or outside a checkout, it exits
-non-zero at once.
+line, timed through the entry the fused expand calls, on a member table
+already on the card, with ``device_ms`` beside it; ``list_entry_ms``
+times the list-taking entry, which builds and copies the table, and
+``dispatch_ms`` the whole fused expand, drained after each call).  Last, the script
+prints the ``kernels`` line (K1–K7, K6 as its two kernels), the card's
+name and power limit as nvidia-smi gives them, and the ``ok`` line.
+Any failed check exits non-zero before those lines.  Without a CUDA
+device, or outside a checkout, it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -111,6 +116,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, float32 outside MMA
 BF16_OPS_PER_S = 989e12          # H100 SXM data sheet, dense bf16 MMA
+TF32_OPS_PER_S = 495e12          # H100 SXM data sheet, dense TF32 MMA
 
 K_LARGE = 8
 TAU = 1e5
@@ -411,6 +417,8 @@ def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
         max_abs_err=err,
         ms=time_ms(torch, lambda: fe.frontier_masks(*args,
                                                     max_deg=cfg.max_deg), 50),
+        device_ms=device_ms(torch, lambda: fe.frontier_masks(
+            *args, max_deg=cfg.max_deg), 50),
         plain_ms=time_ms(torch, lambda: fe.frontier_masks_plain(
             *args, max_deg=cfg.max_deg), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -556,14 +564,15 @@ def record_largest_fused(ops):
     seen = {"slots": -1}
 
     def wrapped(paths, rank, tvec, depthv, begins, ends, dsts, wantc, *,
-                max_deg):
+                max_deg, member_table=None):
         slots = len(paths) * max_deg
         if slots > seen["slots"]:
             seen.update(slots=slots, args=(paths, rank, tvec, depthv,
                                            begins, ends, dsts),
-                        max_deg=max_deg)
+                        wantc=wantc, max_deg=max_deg,
+                        member_table=member_table)
         return orig(paths, rank, tvec, depthv, begins, ends, dsts, wantc,
-                    max_deg=max_deg)
+                    max_deg=max_deg, member_table=member_table)
 
     ops.frontier_expand_fused = wrapped
 
@@ -648,9 +657,28 @@ def batch_phase(torch, tc, fe, ops, g, picks, shared, dev, nbatch):
     return runs, index_of, largest
 
 
-def fused_kernel_row(torch, np, fe, largest, dev):
+def dispatch_ms(torch, fn, reps: int) -> float:
+    """Milliseconds per call of ``fn`` on the host clock with the card
+    drained after each call, as a driver pays a dispatch whose results it
+    reads back before the next."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def fused_kernel_row(torch, np, fe, ops, largest, dev):
     """K5 against its plain version at the fused leg's largest dispatch,
-    padded as ``ops.frontier_expand_fused`` pads it."""
+    padded as ``ops.frontier_expand_fused`` pads it.  ``ms`` and
+    ``device_ms`` time the entry the fused expand launches, on a member
+    table already on the card; ``list_entry_ms`` the list-taking entry,
+    which builds and copies the table (the span of ``ms`` before the
+    table entry existed); ``dispatch_ms`` the whole fused expand on the
+    same arguments, drained after each call, as the fused driver pays a
+    dispatch."""
     paths, rank, tvec, depthv, begins, ends, dsts = largest["args"]
     rank = np.asarray(rank)
     rows, k1 = paths.shape
@@ -664,9 +692,16 @@ def fused_kernel_row(torch, np, fe, largest, dev):
             torch.from_numpy(np.asarray(tvec, np.int32)).to(dev),
             torch.from_numpy(np.asarray(depthv, np.int32)).to(dev),
             begins, ends, dsts)
-    got = fe.frontier_fused_masks(*args, max_deg=md)
+    # the entry the fused expand calls, on a member table on the card
+    table = torch.from_numpy(fe.fused_member_table(
+        begins, ends, dsts, k1max=k1, device=dev)).to(dev)
+
+    def run():
+        return fe.frontier_fused_masks_table(*args[:4], table, max_deg=md)
     want = fe.frontier_fused_masks_plain(*args, max_deg=md)
-    err = max_abs_err(torch, got, want)
+    got = run()
+    err = max(max_abs_err(torch, got, want), max_abs_err(
+        torch, fe.frontier_fused_masks(*args, max_deg=md), want))
     check(err == 0, f"frontier_fused_masks differs from its plain version: "
                     f"{err}")
     m = len(begins)
@@ -697,9 +732,14 @@ def fused_kernel_row(torch, np, fe, largest, dev):
     # emit, continue and clip tests
     b_ms, b_by = bound(nbytes, int((cnt * (depth_rows + 4)).sum()))
     row = dict(
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: fe.frontier_fused_masks(*args,
-                                                          max_deg=md), 50),
+        max_abs_err=err, ms=time_ms(torch, run, 50),
+        device_ms=device_ms(torch, run, 50),
+        list_entry_ms=time_ms(torch, lambda: fe.frontier_fused_masks(
+            *args, max_deg=md), 50),
+        dispatch_ms=dispatch_ms(torch, lambda: ops.frontier_expand_fused(
+            paths, rank, tvec, depthv, begins, ends, dsts,
+            largest["wantc"], max_deg=largest["max_deg"],
+            member_table=largest["member_table"]), 50),
         plain_ms=time_ms(torch, lambda: fe.frontier_fused_masks_plain(
             *args, max_deg=md), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
@@ -874,7 +914,12 @@ def attention_row(torch, run, plain, library, ops, nbytes, dtype, reps,
                    plain_scaled_err_vs_f32=e_p)
         del ref
     del got, want
-    b_ms, b_by = bound(nbytes, ops, peak_for(torch, dtype))
+    if shape["kernel"] == "flash_attention" and dtype == torch.float32:
+        # three TF32 products per operation on the tensor cores
+        b_ms, b_by = bound(nbytes, 3 * ops, TF32_OPS_PER_S)
+        rel["simt_bound_ms"] = bound(nbytes, ops, FP32_OPS_PER_S)[0]
+    else:
+        b_ms, b_by = bound(nbytes, ops, peak_for(torch, dtype))
     return dict(max_abs_err=err, tol=tol, **rel,
                 ms=time_ms(torch, run, reps, warmup=1),
                 device_ms=device_ms(torch, run, reps),
@@ -1319,7 +1364,7 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
 
-    rows["frontier_fused_masks"] = fused_kernel_row(torch, np, fe, largest,
+    rows["frontier_fused_masks"] = fused_kernel_row(torch, np, fe, ops, largest,
                                                     dev)
     check_phase(np, tc, large_runs, small_runs, g_small, dev)
     check_batch(tc, batch_runs, index_of, dev)

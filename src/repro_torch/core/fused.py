@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..kernels import ops as kops
+from ..kernels.frontier_expand import fused_member_table
 from . import clock
 from .enumerate import (DEVICE_SLOT_BUDGET, EnumResult, EnumStats,
                         _fanout_segments, _finalize, _trim_to_first_n)
@@ -39,12 +40,17 @@ from .index import LightweightIndex
 
 class _MemberState:
     """One query's private driver state inside a fused run."""
-    __slots__ = ("idx", "dev", "stats", "out_paths", "out_lens", "count",
-                 "work", "result")
+    __slots__ = ("idx", "dev", "table_row", "stats", "out_paths",
+                 "out_lens", "count", "work", "result")
 
     def __init__(self, idx: LightweightIndex) -> None:
         self.idx = idx
         self.dev = idx.device_arrays()
+        # this member's row of K5's member table, built once: it holds the
+        # arrays' addresses, which stay valid while the index lives
+        self.table_row = fused_member_table(
+            [self.dev.begin], [self.dev.end], [self.dev.dst],
+            k1max=idx.k + 1, device=self.dev.begin.device)[0]
         self.stats = EnumStats()
         self.out_paths: List[np.ndarray] = []
         self.out_lens: List[np.ndarray] = []
@@ -134,6 +140,7 @@ def enumerate_fused_device(
         begins = [st.dev.begin for st, *_ in members]
         ends = [st.dev.end for st, *_ in members]
         dsts = [st.dev.dst for st, *_ in members]
+        table = np.stack([st.table_row for st, *_ in members])
 
         # the solo path's slot-budget segmentation, over the packed rows:
         # a hub member splits the round into several dispatches exactly
@@ -146,7 +153,8 @@ def enumerate_fused_device(
                 kops.frontier_expand_fused(
                     packed_paths[lo:hi], rank[lo:hi], tvec, depthv, begins,
                     ends, dsts, wantc,
-                    max_deg=max(int(packed_cnt[lo:hi].max()), 1))
+                    max_deg=max(int(packed_cnt[lo:hi].max()), 1),
+                    member_table=table)
             # one host read for the counts, one copy per row matrix
             small = np.array(torch.cat([n_emit_m.long(), n_cont_m.long(),
                                         counters.long().view(-1)]).tolist(),

@@ -4,8 +4,8 @@ the LM attention kernels).
 
 decode_attention — K7, single-token attention over a KV cache, split
                    across blocks for long caches
-flash_attention  — K6, blocked online-softmax attention (bfloat16 on
-                   the tensor cores, float32 on the SIMT kernel)
+flash_attention  — K6, blocked online-softmax attention on the tensor
+                   cores (bfloat16; float32 as split TF32)
 frontier_expand  — K1 and K5, the IDX-DFS frontier masks (single-query
                    and fused over many queries)
 ops              — compaction, K2 (the resident work deque, one
@@ -22,14 +22,14 @@ from . import (decode_attention, flash_attention, frontier_expand, ops,
 
 def launch_counts() -> dict:
     """Kernel launches (deque rounds for K2) since the last reset; K6's
-    two kernels apart (``flash_attention`` the float32 SIMT kernel,
+    two kernels apart (``flash_attention`` the float32 split-TF32 kernel,
     ``flash_attention_sm90`` the bfloat16 wgmma kernel)."""
     return {"frontier_masks": frontier_expand.launches,
             "frontier_fused_masks": frontier_expand.fused_launches,
             "frontier_deque_round": ops.deque_rounds,
             "counting_spmm": semiring_spmm.counting_launches,
             "minplus_spmv": semiring_spmm.minplus_launches,
-            "flash_attention": flash_attention.simt_launches,
+            "flash_attention": flash_attention.f32_launches,
             "flash_attention_sm90": flash_attention.wgmma_launches,
             "decode_attention": decode_attention.launches}
 
@@ -41,6 +41,6 @@ def reset_launch_counts() -> None:
     ops.deque_rounds = 0
     semiring_spmm.counting_launches = 0
     semiring_spmm.minplus_launches = 0
-    flash_attention.simt_launches = 0
+    flash_attention.f32_launches = 0
     flash_attention.wgmma_launches = 0
     decode_attention.launches = 0

@@ -192,13 +192,14 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
       int* copy = rows_ws + static_cast<long long>(r) * k1;
       for (int c = lane; c < k1; c += 32) copy[c] = src[c];
       const frontier::Row row =
-          frontier::row_window(src, begin, end, k1, cdepth);
+          frontier::row_window(src, begin, end, k1, cdepth, k1);
       const int span = row.cnt < g.max_deg ? row.cnt : g.max_deg;
       int ec = 0, cc = 0, dups = 0;
       bool alive = false;
       for (int j0 = 0; j0 < span; j0 += 32) {
         const frontier::Slot s =
-            frontier::row_slot(row, dst, mf, t, j0 + lane, g.max_deg);
+            frontier::row_slot(row, dst, mf, t, j0 + lane, g.max_deg,
+                               frontier::PrefixInMemory{src, cdepth});
         ec += __popc(__ballot_sync(kFull, s.emit));
         cc += __popc(__ballot_sync(kFull, s.cont && wantc));
         alive |= __any_sync(kFull, s.emit || s.cont);
@@ -250,13 +251,14 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
       for (int i = warp; i < in_tile; i += kWarps) {
         const int* prow = rows_ws + static_cast<long long>(tile + i) * k1;
         const frontier::Row row =
-            frontier::row_window(prow, begin, end, k1, cdepth);
+            frontier::row_window(prow, begin, end, k1, cdepth, k1);
         const int span = row.cnt < g.max_deg ? row.cnt : g.max_deg;
         long long eo = row_off[i].x;
         long long co = row_off[i].y;
         for (int j0 = 0; j0 < span; j0 += 32) {
           const frontier::Slot s =
-              frontier::row_slot(row, dst, mf, t, j0 + lane, g.max_deg);
+              frontier::row_slot(row, dst, mf, t, j0 + lane, g.max_deg,
+                                 frontier::PrefixInMemory{prow, cdepth});
           const bool c = s.cont && wantc;
           const unsigned em = __ballot_sync(kFull, s.emit);
           const unsigned cm = __ballot_sync(kFull, c);

@@ -56,12 +56,13 @@ __global__ void frontier_masks_kernel(
 
   if (row < rows) {  // uniform across the warp
     const frontier::Row r = frontier::row_window(
-        paths + static_cast<long long>(row) * k1, begin, end, k1, depth);
+        paths + static_cast<long long>(row) * k1, begin, end, k1, depth, k1);
     bool alive = false;
     int dups = 0;
     for (int j0 = 0; j0 < max_deg; j0 += 32) {
       const int j = j0 + lane;
-      const frontier::Slot s = frontier::row_slot(r, dst, mf, t, j, max_deg);
+      const frontier::Slot s = frontier::row_slot(
+          r, dst, mf, t, j, max_deg, frontier::PrefixInMemory{r.prow, depth});
       if (j < max_deg) {
         const long long o = static_cast<long long>(row) * max_deg + j;
         vnew[o] = (s.emit || s.cont) ? s.v : frontier::kPad;

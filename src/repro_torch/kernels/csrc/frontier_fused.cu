@@ -12,137 +12,185 @@
 // own dst (positions clipped inside that member's array, so no row reads
 // another member's edges), drop those already on the row's prefix, and
 // split the rest into emit (== t) and continue.  Outputs the (C, max_deg)
-// candidate / emit / continue matrices and adds the per-member Fig.-6
-// counters [edges, edges, invalid, 0] into the (m, 4) `counters` (zeroed by
-// the caller).  PAD rows carry rank 0 and contribute nothing.
+// candidate / emit / continue matrices and the per-member Fig.-6 counters
+// [edges, edges, invalid, 0] in the (m, 4) `counters`, which the launch
+// function zeroes on the stream (`cudaMemsetAsync`) before the kernel.
+// PAD rows carry rank 0 and contribute nothing.  The per-row logic is
+// frontier.cuh's, shared with K1 and K2.
 //
-// No concatenated tables: the TPU wrapper concatenates every member's
-// begin, budget column of end and padded dst into (m*n,) / (m*mfm,) arrays
-// on every round.  Here the kernel reads a small (m, 5) int64 table of
-// per-member [begin pointer, end pointer, dst pointer, mf, k+1] and reads
-// the budget column of end itself, so a round copies nothing but that
-// table.  Every offset is 64-bit (rows * k1, v * (k+1)).
+// The member table.  The TPU wrapper concatenates every member's begin,
+// budget column of end and padded dst into (m*n,) / (m*mfm,) arrays on
+// every round.  Here the kernel reads a small (m, 5) int64 table of
+// per-member [begin pointer, end pointer, dst pointer, mf, k+1] on the
+// device and reads the budget column of end itself.  The caller puts the
+// table into the one host-to-device copy it makes anyway (the packed rows
+// and per-member scalars, `ops.frontier_expand_fused`), from pinned memory
+// without a stream sync, so a launch waits on nothing.  Every offset is
+// 64-bit (rows * k1, v * (k+1)).
 //
 // What bounds it on the H100: bytes, as for K1.  Per candidate slot it
-// reads one dst entry (4 B) and compares it with at most k+1 prefix entries
-// that sit in L1, and it writes three int32 outputs (12 B); the gathers are
-// irregular, so the sustained rate is that of scattered 32-byte sectors.
+// reads one dst entry (4 B) and writes three int32 outputs (12 B); the
+// gathers are irregular, so the sustained rate is that of scattered
+// 32-byte sectors.
 //
-// Design: one warp per row, as in frontier.cu.  Lanes walk the row's
-// candidate slots in steps of 32 (contiguous dst reads, coalesced output
-// writes); the dead-row test and the duplicate count are warp votes.  Each
-// warp leaves its row's (rank, edges, invalid) in shared memory; then one
-// thread per run of equal ranks in the block sums the run and issues one
-// atomicAdd per counter, so a block adds once per member it touches.
-// Integer sums are exact in any order, so the counters equal the plain
-// version's.  Compaction into rows is left to the wrapper.
+// Design:
+//  * A row gets a group of W lanes, W = max_deg rounded up to a power of
+//    two and at most 32, so where the batch's fan-out is small a warp
+//    serves 32 / W rows instead of leaving most lanes idle.  Lanes walk the
+//    row's candidate slots in steps of W (contiguous dst reads, coalesced
+//    output writes); the dead-row test and the duplicate count are ballots
+//    masked to the group.
+//  * The row's prefix is read once into lane registers (lane c of the
+//    group holds entry c, W at a time) and each candidate is tested
+//    against it by shuffles, instead of every candidate re-reading the
+//    prefix from memory.
+//  * Counters: lanes with equal ranks in a warp add their rows' sums
+//    together (`__match_any_sync`, `__reduce_add_sync`), the warps of a
+//    block in shared memory, and one thread per member the block touched
+//    issues the global atomicAdds.  Integer sums are exact in any order, so
+//    the counters equal the plain version's.  Compaction into rows is left
+//    to the wrapper.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "frontier.cuh"
 
 namespace {
 
-constexpr int kPad = -1;
 constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kTableCols = 5;  // begin, end, dst pointers; mf; k+1
+constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void frontier_fused_kernel(
+// The prefix test of a row whose group of W lanes holds entries
+// 0..W-1 of the prefix in `first` (PAD past depth); entries from W on, if
+// the rows are wider than W, are read a group-width at a time.  Every lane
+// of the warp runs the same shuffles (the bounds are uniform).
+struct PrefixInLanes {
+  const int* prow;
+  int first;
+  int depth;
+  int sub;
+  int width;  // W
+  int k1max;
+  __device__ __forceinline__ bool operator()(int v, bool in_range) const {
+    bool dup = false;
+    for (int c0 = 0; c0 < k1max; c0 += width) {
+      const int own = c0 == 0 ? first
+                      : (c0 + sub <= depth ? prow[c0 + sub] : frontier::kPad);
+      const int n = k1max - c0 < width ? k1max - c0 : width;
+      for (int s = 0; s < n; ++s) {
+        const int x = __shfl_sync(kFull, own, s, width);
+        dup |= c0 + s <= depth && x == v;
+      }
+    }
+    return dup && in_range;
+  }
+};
+
+__global__ void __launch_bounds__(kThreads) frontier_fused_kernel(
     const int* __restrict__ paths, const int* __restrict__ rank,
     const int* __restrict__ tvec, const int* __restrict__ depthv,
     const long long* __restrict__ table, int* __restrict__ vnew,
     int* __restrict__ emit, int* __restrict__ cont,
-    int* __restrict__ counters, int rows, int k1max, int max_deg, int m) {
-  __shared__ int s_rank[kWarpsPerBlock];
-  __shared__ int s_edges[kWarpsPerBlock];
-  __shared__ int s_invalid[kWarpsPerBlock];
+    int* __restrict__ counters, int rows, int k1max, int max_deg, int m,
+    int width) {
+  __shared__ int s_base;
+  __shared__ int s_edges[kThreads];
+  __shared__ int s_invalid[kThreads];
 
-  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + warp;
-  int r = -1;
-  int edges = 0;
-  int invalid = 0;
+  const int sub = lane & (width - 1);
+  const int grp = lane / width;
+  const int per_block = kThreads / width;
+  const int row = blockIdx.x * per_block + (threadIdx.x >> 5) * (32 / width)
+                  + grp;
+  const unsigned gmask =
+      width == 32 ? kFull : ((1u << width) - 1u) << (grp * width);
+  s_edges[threadIdx.x] = 0;
+  s_invalid[threadIdx.x] = 0;
+  if (threadIdx.x == 0) s_base = INT_MAX;
 
-  if (row < rows) {  // uniform across the warp
+  int r = -1;
+  frontier::Row fr{paths, -1, 0, 0, false};
+  const int* dst = nullptr;
+  int mf = 1;
+  int t = frontier::kPad;
+  if (row < rows) {
     r = rank[row];
-    const bool member_ok = r >= 0 && r < m;
     const int* prow = paths + static_cast<long long>(row) * k1max;
-    const int* begin = nullptr;
-    const int* end = nullptr;
-    const int* dst = nullptr;
-    int mf = 1;
-    int k1m = 1;
-    int depth = -1;
-    int t = kPad;
-    if (member_ok) {
+    fr.prow = prow;
+    if (r >= 0 && r < m) {
       const long long* mt = table + static_cast<long long>(r) * kTableCols;
-      begin = reinterpret_cast<const int*>(static_cast<uintptr_t>(mt[0]));
-      end = reinterpret_cast<const int*>(static_cast<uintptr_t>(mt[1]));
+      const int* begin =
+          reinterpret_cast<const int*>(static_cast<uintptr_t>(mt[0]));
+      const int* end =
+          reinterpret_cast<const int*>(static_cast<uintptr_t>(mt[1]));
       dst = reinterpret_cast<const int*>(static_cast<uintptr_t>(mt[2]));
       mf = static_cast<int>(mt[3]);
-      k1m = static_cast<int>(mt[4]);
-      depth = depthv[r];
       t = tvec[r];
+      fr = frontier::row_window(prow, begin, end, static_cast<int>(mt[4]),
+                                depthv[r], k1max);
     } else {
       r = -1;
     }
-    // budget k - depth - 1 of this member, clipped like the TPU code
-    int b = k1m - 2 - depth;
-    b = b < 0 ? 0 : (b > k1m - 1 ? k1m - 1 : b);
-    const bool depth_ok = depth >= 0 && depth < k1max;
-    const int last = (member_ok && depth_ok) ? prow[depth] : kPad;
-    const bool valid = last != kPad;
-    int bg = 0;
-    int cnt = 0;
-    if (valid) {
-      bg = begin[last];
-      cnt = end[static_cast<long long>(last) * k1m + b] - bg;
-    }
-    bool alive = false;
-    int dups = 0;
-    for (int j0 = 0; j0 < max_deg; j0 += 32) {
-      const int j = j0 + lane;
-      const bool in_range = j < max_deg && j < cnt;
-      int v = kPad;
-      bool dup = false;
-      if (in_range) {
-        long long pos = static_cast<long long>(bg) + j;
-        pos = pos < 0 ? 0 : (pos > mf - 1 ? mf - 1 : pos);
-        v = dst[pos];
-        for (int c = 0; c <= depth; ++c) dup |= (prow[c] == v);
-      }
-      const bool e = in_range && !dup && v == t;
-      const bool co = in_range && !dup && v != t;
-      if (j < max_deg) {
-        const long long o = static_cast<long long>(row) * max_deg + j;
-        vnew[o] = (e || co) ? v : kPad;
-        emit[o] = e ? 1 : 0;
-        cont[o] = co ? 1 : 0;
-      }
-      alive |= __any_sync(0xffffffffu, e || co);
-      dups += __popc(__ballot_sync(0xffffffffu, in_range && dup));
-    }
-    edges = valid ? cnt : 0;
-    invalid = dups + ((valid && !alive) ? 1 : 0);
   }
-  if (lane == 0) {
-    s_rank[warp] = r;
-    s_edges[warp] = edges;
-    s_invalid[warp] = invalid;
+  const int depth = fr.valid ? fr.depth : -1;  // no prefix test otherwise
+  const PrefixInLanes on_prefix{
+      fr.prow, sub <= depth && sub < k1max ? fr.prow[sub] : frontier::kPad,
+      depth, sub, width, k1max};
+
+  bool alive = false;
+  int dups = 0;
+  for (int j0 = 0; j0 < max_deg; j0 += width) {
+    const int j = j0 + sub;
+    const frontier::Slot s =
+        frontier::row_slot(fr, dst, mf, t, j, max_deg, on_prefix);
+    if (row < rows && j < max_deg) {
+      const long long o = static_cast<long long>(row) * max_deg + j;
+      vnew[o] = (s.emit || s.cont) ? s.v : frontier::kPad;
+      emit[o] = s.emit ? 1 : 0;
+      cont[o] = s.cont ? 1 : 0;
+    }
+    alive |= (__ballot_sync(kFull, s.emit || s.cont) & gmask) != 0;
+    dups += __popc(__ballot_sync(kFull, s.in_range && s.dup) & gmask);
+  }
+
+  // this row's counters, on its group's first lane
+  int edges = 0, invalid = 0;
+  if (sub == 0 && r >= 0) {
+    edges = frontier::row_edges(fr);
+    invalid = frontier::row_invalid(fr, dups, alive);
+  }
+  const int key = (edges != 0 || invalid != 0) ? r : -1;
+  const unsigned peers = __match_any_sync(kFull, key);
+  edges = __reduce_add_sync(peers, edges);
+  invalid = __reduce_add_sync(peers, invalid);
+  const bool leader = key >= 0 && lane == __ffs(peers) - 1;
+  __syncthreads();
+  if (leader) atomicMin(&s_base, key);
+  __syncthreads();
+  // ranks ascend with the rows, so the block's members are s_base + i for
+  // small i; a rank out of that window (unsorted input) adds straight away
+  if (leader) {
+    const int i = key - s_base;
+    if (i < kThreads) {
+      atomicAdd(&s_edges[i], edges);
+      atomicAdd(&s_invalid[i], invalid);
+    } else {
+      int* c = counters + static_cast<long long>(key) * 4;
+      atomicAdd(&c[0], edges);
+      atomicAdd(&c[1], edges);
+      atomicAdd(&c[2], invalid);
+    }
   }
   __syncthreads();
-  // one thread per run of equal ranks: sum the run, one atomicAdd each
-  const int w = threadIdx.x;
-  if (w < kWarpsPerBlock && s_rank[w] >= 0
-      && (w == 0 || s_rank[w] != s_rank[w - 1])) {
-    const int mr = s_rank[w];
-    int e = 0;
-    int iv = 0;
-    for (int x = w; x < kWarpsPerBlock && s_rank[x] == mr; ++x) {
-      e += s_edges[x];
-      iv += s_invalid[x];
-    }
-    int* c = counters + static_cast<long long>(mr) * 4;
+  const int e = s_edges[threadIdx.x];
+  const int iv = s_invalid[threadIdx.x];
+  if (e != 0 || iv != 0) {
+    int* c = counters + static_cast<long long>(s_base + threadIdx.x) * 4;
     if (e != 0) {
       atomicAdd(&c[0], e);
       atomicAdd(&c[1], e);
@@ -153,14 +201,23 @@ __global__ void frontier_fused_kernel(
 
 }  // namespace
 
+// `counters` (m, 4) is zeroed here, on the stream, before the kernel.
 extern "C" int frontier_fused_masks_launch(
     const int* paths, const int* rank, const int* tvec, const int* depthv,
     const long long* table, int* vnew, int* emit, int* cont, int* counters,
     int rows, int k1max, int max_deg, int m, cudaStream_t stream) {
+  if (m > 0) {
+    const cudaError_t err = cudaMemsetAsync(
+        counters, 0, static_cast<size_t>(m) * 4 * sizeof(int), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   if (rows <= 0) return 0;
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  frontier_fused_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
+  int width = 1;
+  while (width < max_deg && width < 32) width *= 2;
+  const int per_block = kThreads / width;
+  const int blocks = (rows + per_block - 1) / per_block;
+  frontier_fused_kernel<<<blocks, kThreads, 0, stream>>>(
       paths, rank, tvec, depthv, table, vnew, emit, cont, counters, rows,
-      k1max, max_deg, m);
+      k1max, max_deg, m, width);
   return static_cast<int>(cudaGetLastError());
 }

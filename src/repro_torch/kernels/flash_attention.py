@@ -8,9 +8,11 @@ sliding-window masks from global indices with the offset ``Lk - Lq``.
 
 Each dtype has one CUDA kernel, and its source says what bounds it on
 the card: bfloat16 runs on the tensor cores (``wgmma``) in
-``csrc/flash_attention_sm90.cu``; float32 runs the SIMT kernel of
-``csrc/flash_attention.cu``, because TF32 products would break the
-float32 contract's 2e-5.  A CUDA tensor launches its dtype's kernel,
+``csrc/flash_attention_sm90.cu``; float32 runs on the tensor cores too,
+in ``csrc/flash_attention.cu``, with each operand split into two TF32
+parts and every product taken as hi·hi + hi·lo + lo·hi in float32 (plain
+TF32 keeps 11 bits and would break the float32 contract's 2e-5; the
+split keeps about 22).  A CUDA tensor launches its dtype's kernel,
 whatever its lengths, and a failed build or launch raises: the kernels
 mask ragged ``Lq``, ``Lk`` and ``Lq != Lk`` themselves, so nothing falls
 back to a plain version (``repro``'s wrapper falls back to
@@ -27,8 +29,8 @@ import torch
 from . import _build
 
 # kernel launches since process start (chip_smoke.py resets and reads
-# them): the float32 SIMT kernel's and the bfloat16 wgmma kernel's
-simt_launches: int = 0
+# them): the float32 (split TF32) kernel's and the bfloat16 wgmma kernel's
+f32_launches: int = 0
 wgmma_launches: int = 0
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -108,9 +110,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` (applied only when ``causal``) keeps the columns with
     ``row + Lk - Lq - col < window``; ``scale`` defaults to
     ``1 / sqrt(D)``.  On the card the dtype picks the kernel: bfloat16
-    launches the ``wgmma`` kernel, float32 the SIMT kernel; a CPU tensor
+    launches the ``wgmma`` kernel, float32 the split-TF32 kernel; a CPU tensor
     takes ``flash_attention_plain``."""
-    global simt_launches, wgmma_launches
+    global f32_launches, wgmma_launches
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Lq, H, D) and k, v "
                          f"(B, Lk, Hkv, D), got {tuple(q.shape)}, "
@@ -138,5 +140,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if bf16:
         wgmma_launches += 1
     else:
-        simt_launches += 1
+        f32_launches += 1
     return out

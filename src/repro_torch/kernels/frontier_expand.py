@@ -33,15 +33,20 @@ the rows of one (C, k1max) matrix pack one chunk per member in ascending
 member rank, ``rank`` (C,) tags each row, ``tvec`` / ``depthv`` (m,) hold
 each member's target and chunk depth, and each member brings its own
 ``begin`` (n,), ``end`` (n, k+1) and ``dst`` (mf,).  The kernel reads the
-members' arrays through a table of pointers; the plain version builds
-``repro``'s flattened ``(m·n,)`` / ``(m·mfm,)`` layout from them
-(``fused_flat_tables``).  Counters come out per member, ``(m, 4)``.
-``fused_launches`` counts its launches.
+members' arrays through an (m, 5) int64 table of pointers on the device
+(``fused_member_table``); the plain version builds ``repro``'s flattened
+``(m·n,)`` / ``(m·mfm,)`` layout from them (``fused_flat_tables``).
+Counters come out per member, ``(m, 4)``.  ``frontier_fused_masks_table``
+launches the kernel on a table the caller already holds on the card (the
+fused expand copies it in with the packed rows, so a launch waits on no
+copy); ``frontier_fused_masks`` takes the members' arrays, as the tests
+and the plain version do.  ``fused_launches`` counts its launches.
 """
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from . import _build
@@ -231,41 +236,100 @@ def _fused_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check_fused_args(paths: torch.Tensor, rank: torch.Tensor,
-                      tvec: torch.Tensor, depthv: torch.Tensor, begins,
-                      ends, dsts, max_deg: int) -> None:
-    dev = paths.device
-    m = len(begins)
-    if m < 1 or len(ends) != m or len(dsts) != m:
-        raise ValueError("begins, ends and dsts need one entry per member "
-                         "(at least one)")
+def _check_rows(paths: torch.Tensor, rank: torch.Tensor,
+                tvec: torch.Tensor, depthv: torch.Tensor, m: int,
+                max_deg: int) -> None:
+    """Raise unless the packed rows and per-member vectors are int32,
+    contiguous, on one device and shaped for ``m`` members."""
     if paths.dim() != 2 or rank.shape != (paths.shape[0],):
         raise ValueError("paths must be (C, k1) and rank (C,)")
     if tvec.shape != (m,) or depthv.shape != (m,):
         raise ValueError(f"tvec and depthv must be ({m},)")
-    n = begins[0].shape[0]
-    named = [("paths", paths), ("rank", rank), ("tvec", tvec),
-             ("depthv", depthv)]
-    for i in range(m):
-        named += [(f"begins[{i}]", begins[i]), (f"ends[{i}]", ends[i]),
-                  (f"dsts[{i}]", dsts[i])]
-        if begins[i].shape != (n,) or ends[i].dim() != 2 \
-                or ends[i].shape[0] != n \
-                or not 2 <= ends[i].shape[1] <= paths.shape[1]:
-            raise ValueError(f"member {i}: begin must be (n,) and end "
-                             f"(n, k+1) with n = {n} and k+1 <= "
-                             f"{paths.shape[1]}")
-        if dsts[i].dim() != 1 or dsts[i].shape[0] < 1:
-            raise ValueError(f"member {i}: dst needs at least one element")
-    for name, x in named:
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, paths on {dev}")
+    for name, x in (("paths", paths), ("rank", rank), ("tvec", tvec),
+                    ("depthv", depthv)):
+        if x.device != paths.device:
+            raise ValueError(f"{name} is on {x.device}, paths on "
+                             f"{paths.device}")
         if x.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if max_deg < 1:
         raise ValueError("max_deg must be >= 1")
+
+
+def fused_member_table(begins, ends, dsts, *, k1max: int, device
+                       ) -> np.ndarray:
+    """The kernel's (m, 5) int64 member table ``[begin pointer, end
+    pointer, dst pointer, mf, k+1]``, on the host, after checking each
+    member's arrays: int32, contiguous, on ``device``, ``begin`` (n,) and
+    ``end`` (n, k+1) with one n for all and ``2 <= k+1 <= k1max``, ``dst``
+    non-empty."""
+    m = len(begins)
+    if m < 1 or len(ends) != m or len(dsts) != m:
+        raise ValueError("begins, ends and dsts need one entry per member "
+                         "(at least one)")
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    n = begins[0].shape[0]
+    table = np.empty((m, 5), np.int64)
+    for i, (b, e, d) in enumerate(zip(begins, ends, dsts)):
+        if b.shape != (n,) or e.dim() != 2 or e.shape[0] != n \
+                or not 2 <= e.shape[1] <= k1max:
+            raise ValueError(f"member {i}: begin must be (n,) and end "
+                             f"(n, k+1) with n = {n} and k+1 <= {k1max}")
+        if d.dim() != 1 or d.shape[0] < 1:
+            raise ValueError(f"member {i}: dst needs at least one element")
+        for name, x in (("begins", b), ("ends", e), ("dsts", d)):
+            if x.device != device:
+                raise ValueError(f"{name}[{i}] is on {x.device}, paths on "
+                                 f"{device}")
+            if x.dtype != torch.int32:
+                raise TypeError(f"{name}[{i}] must be int32, got {x.dtype}")
+            if not x.is_contiguous():
+                raise ValueError(f"{name}[{i}] must be contiguous")
+        table[i] = (b.data_ptr(), e.data_ptr(), d.data_ptr(), d.shape[0],
+                    e.shape[1])
+    return table
+
+
+def frontier_fused_masks_table(paths: torch.Tensor, rank: torch.Tensor,
+                               tvec: torch.Tensor, depthv: torch.Tensor,
+                               table: torch.Tensor, *, max_deg: int
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor, torch.Tensor]:
+    """One fused frontier hop on the card, on a member table already there:
+    ``table`` (m, 5) int64 on the rows' CUDA device, as
+    ``fused_member_table`` builds it (its arrays must outlive the launch).
+    Launches the kernel of ``csrc/frontier_fused.cu`` on the current
+    stream, which zeroes the counters itself, and raises if the launch
+    fails.  No plain version reads a table of device pointers: CPU callers
+    take ``frontier_fused_masks``."""
+    global fused_launches
+    if not paths.is_cuda:
+        raise ValueError("frontier_fused_masks_table runs on the card; "
+                         "CPU tensors take frontier_fused_masks")
+    if table.dim() != 2 or table.shape[1] != 5 \
+            or table.dtype != torch.int64 or table.device != paths.device \
+            or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous (m, 5) int64 tensor on "
+                         f"{paths.device}")
+    m = table.shape[0]
+    _check_rows(paths, rank, tvec, depthv, m, max_deg)
+    C, k1 = paths.shape
+    # one allocation for the three masks: each tensor op costs host time
+    vnew, emit, cont = torch.empty((3, C, max_deg), dtype=torch.int32,
+                                   device=paths.device)
+    counters = torch.empty((m, 4), dtype=torch.int32, device=paths.device)
+    status = _fused_lib().frontier_fused_masks_launch(
+        paths.data_ptr(), rank.data_ptr(), tvec.data_ptr(),
+        depthv.data_ptr(), table.data_ptr(), vnew.data_ptr(),
+        emit.data_ptr(), cont.data_ptr(), counters.data_ptr(), C, k1,
+        max_deg, m, _build.stream(paths.device))
+    _build.check(status, "frontier_fused_masks")
+    fused_launches += 1
+    return vnew, emit, cont, counters
 
 
 def frontier_fused_masks(paths: torch.Tensor, rank: torch.Tensor,
@@ -276,31 +340,19 @@ def frontier_fused_masks(paths: torch.Tensor, rank: torch.Tensor,
     """One fused frontier hop: ``(vnew, emit, cont, counters)`` for rows
     packed from many members, counters ``(m, 4)``.
 
-    CUDA tensors launch the kernel of ``csrc/frontier_fused.cu`` on the
-    current stream (and raise if the launch fails); CPU tensors take
+    CUDA tensors build the member table, copy it to the card and launch
+    the kernel through ``frontier_fused_masks_table``; CPU tensors take
     ``frontier_fused_masks_plain``.
     """
-    global fused_launches
-    _check_fused_args(paths, rank, tvec, depthv, begins, ends, dsts,
-                      max_deg)
+    _check_rows(paths, rank, tvec, depthv, len(begins), max_deg)
+    table = fused_member_table(begins, ends, dsts, k1max=paths.shape[1],
+                               device=paths.device)
     if not paths.is_cuda:
         return frontier_fused_masks_plain(paths, rank, tvec, depthv, begins,
                                           ends, dsts, max_deg=max_deg)
-    C, k1 = paths.shape
-    m = len(begins)
-    table = torch.tensor(
-        [[b.data_ptr(), e.data_ptr(), d.data_ptr(), d.shape[0], e.shape[1]]
-         for b, e, d in zip(begins, ends, dsts)],
-        dtype=torch.int64).to(paths.device)
-    vnew = torch.empty((C, max_deg), dtype=torch.int32, device=paths.device)
-    emit = torch.empty_like(vnew)
-    cont = torch.empty_like(vnew)
-    counters = torch.zeros((m, 4), dtype=torch.int32, device=paths.device)
-    status = _fused_lib().frontier_fused_masks_launch(
-        paths.data_ptr(), rank.data_ptr(), tvec.data_ptr(),
-        depthv.data_ptr(), table.data_ptr(), vnew.data_ptr(),
-        emit.data_ptr(), cont.data_ptr(), counters.data_ptr(), C, k1,
-        max_deg, m, _build.stream(paths.device))
-    _build.check(status, "frontier_fused_masks")
-    fused_launches += 1
-    return vnew, emit, cont, counters
+    # pinned, so the copy neither syncs the stream nor needs the host
+    # buffer after it (the pinned block is not reused before it is done)
+    table = torch.from_numpy(table).pin_memory().to(paths.device,
+                                                    non_blocking=True)
+    return frontier_fused_masks_table(paths, rank, tvec, depthv, table,
+                                      max_deg=max_deg)

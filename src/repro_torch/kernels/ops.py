@@ -37,8 +37,9 @@ import numpy as np
 import torch
 
 from . import _build
-from .frontier_expand import (PAD, frontier_fused_masks, frontier_masks,
-                              frontier_masks_plain)
+from .frontier_expand import (PAD, frontier_fused_masks,
+                              frontier_fused_masks_table, frontier_masks,
+                              frontier_masks_plain, fused_member_table)
 from .semiring_spmm import minplus_spmv
 
 # launches of the deque-round kernel since process start (one per round
@@ -143,7 +144,8 @@ def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
 
 def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
                           tvec: np.ndarray, depthv: np.ndarray, begins,
-                          ends, dsts, wantc: np.ndarray, *, max_deg: int
+                          ends, dsts, wantc: np.ndarray, *, max_deg: int,
+                          member_table: Optional[np.ndarray] = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
@@ -157,6 +159,10 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
     target, chunk depth and ``want_cont`` (False on its last hop); each
     member brings its index's device ``begin`` / ``end`` / ``dst``.  Rows
     pad to a power of two (at least 8) with PAD rows of rank 0.
+    ``member_table`` is the members' (m, 5) table of K5 as
+    ``fused_member_table`` builds it, where the caller keeps one (each
+    member's row stays valid while its arrays live); without it the table
+    is built here.  The CPU route does not read it.
 
     Returns ``(emit_rows, cont_rows, n_emit_m, n_cont_m, counters)`` on
     the device: the compacted emit and continue rows in flat (row-major)
@@ -172,26 +178,48 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
     m = len(begins)
     if max_deg < 1:
         raise ValueError("zero-fanout chunks never reach the device")
+    if member_table is not None and member_table.shape != (m, 5):
+        raise ValueError(f"member_table must be ({m}, 5), got "
+                         f"{member_table.shape}")
     C = _next_pow2(max(rows, 8))
-    # one host buffer, one copy: [paths | rank | tvec | depthv | wantc]
-    buf = np.zeros(C * k1 + C + 3 * m, dtype=np.int32)
+    dev = begins[0].device
+    on_card = dev.type == "cuda"
+    # one host buffer, one copy: on the card the int64 member table of K5
+    # first, then the int32 [paths | rank | tvec | depthv | wantc], from
+    # pinned memory without a stream sync
+    n_tab = 5 * m if on_card else 0
+    n32 = C * k1 + C + 3 * m
+    host = torch.empty(n_tab + (n32 + 1) // 2, dtype=torch.int64,
+                       pin_memory=on_card)
+    if on_card:
+        if member_table is None:
+            member_table = fused_member_table(begins, ends, dsts, k1max=k1,
+                                              device=dev)
+        host.numpy()[:n_tab] = member_table.reshape(-1)
+    buf = host.numpy()[n_tab:].view(np.int32)
     buf[:C * k1] = PAD
     buf[:rows * k1] = paths.reshape(-1)
     o = C * k1
+    buf[o:o + C] = 0
     buf[o:o + rows] = rank
     o += C
     buf[o:o + m] = tvec
     buf[o + m:o + 2 * m] = depthv
-    buf[o + 2 * m:] = np.asarray(wantc, dtype=bool)
-    dbuf = torch.from_numpy(buf).to(begins[0].device)
-    p = dbuf[:C * k1].view(C, k1)
-    rk = dbuf[C * k1:o]
-    tv = dbuf[o:o + m]
-    dv = dbuf[o + m:o + 2 * m]
-    wc = dbuf[o + 2 * m:] != 0
+    buf[o + 2 * m:o + 3 * m] = np.asarray(wantc, dtype=bool)
+    dbuf = host.to(dev, non_blocking=True)
+    d32 = dbuf[n_tab:].view(torch.int32)
+    p = d32[:C * k1].view(C, k1)
+    rk = d32[C * k1:o]
+    tv = d32[o:o + m]
+    dv = d32[o + m:o + 2 * m]
+    wc = d32[o + 2 * m:o + 3 * m] != 0
     md = _next_pow2(max_deg)
-    vnew, emit, cont, counters = frontier_fused_masks(
-        p, rk, tv, dv, begins, ends, dsts, max_deg=md)
+    if on_card:
+        vnew, emit, cont, counters = frontier_fused_masks_table(
+            p, rk, tv, dv, dbuf[:n_tab].view(m, 5), max_deg=md)
+    else:
+        vnew, emit, cont, counters = frontier_fused_masks(
+            p, rk, tv, dv, begins, ends, dsts, max_deg=md)
     vflat = vnew.view(-1)
     rankflat = rk.long().repeat_interleave(md)
     depth_rows = dv.long().index_select(0, rk.long())

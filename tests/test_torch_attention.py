@@ -122,6 +122,105 @@ def test_flash_plain_not_causal_and_scale():
 
 
 # ---------------------------------------------------------------------------
+# K6 in float32 on the tensor cores: the error budget of the TF32 split
+# ---------------------------------------------------------------------------
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: float32 rounded to 10 mantissa bits, to the
+    nearest, ties away from zero (the low 13 bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _tf32_cut(x):
+    """A float32 as the tensor cores read a TF32 operand: the low 13 bits
+    ignored."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _split_mm(a, b):
+    """a @ b as the kernel takes it on the tensor cores: each operand split
+    into hi = tf32(x) and lo = x - hi (read with its low bits cut), the
+    product hi·hi + hi·lo + lo·hi with float32 sums (hi·hi apart from the
+    two cross products)."""
+    ah, bh = _tf32(a), _tf32(b)
+    al, bl = _tf32_cut(a - ah), _tf32_cut(b - bh)
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def _split_attention(q, k, v, *, causal=True, window=None, split=True):
+    """Attention in the kernel's arithmetic, in its order: Q scaled by
+    scale·log2(e), S = Q K^T as split products, masked with -1e30,
+    P = exp2(S - max), then P V as split products over max(l, 1e-30).
+    ``split=False`` takes plain TF32 products (hi·hi alone)."""
+    B, Lq, H, D = q.shape
+    Lk, group = k.shape[1], H // k.shape[2]
+    mm = _split_mm if split else (lambda a, b: _tf32(a) @ _tf32(b))
+    qh = q.permute(0, 2, 1, 3)
+    kh = k.repeat_interleave(group, 2).permute(0, 2, 3, 1)
+    vh = v.repeat_interleave(group, 2).permute(0, 2, 1, 3)
+    s = mm(qh * np.float32(1.0 / np.sqrt(D) * np.log2(np.e)), kh)
+    if causal:
+        rows = torch.arange(Lq)[:, None] + (Lk - Lq)
+        cols = torch.arange(Lk)[None, :]
+        mask = rows >= cols
+        if window is not None:
+            mask &= rows - cols < window
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.exp2(s - s.amax(-1, keepdim=True))
+    out = mm(p, vh) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    return out.permute(0, 2, 1, 3)
+
+
+# the kernel's tile edges (128 query rows, 32 keys; 64 and 16 at D = 256)
+SPLIT_SHAPES = [
+    (63, 63, 4, 2, 16, None),
+    (65, 129, 4, 1, 32, None),       # Lq < Lk
+    (127, 127, 8, 2, 64, 40),        # window across a KV tile
+    (129, 255, 4, 4, 128, None),     # Lq < Lk, ragged both
+    (129, 129, 4, 2, 256, 20),       # D = 256 with a window
+]
+
+
+@pytest.mark.parametrize("Lq,Lk,H,Hkv,D,window", SPLIT_SHAPES)
+def test_flash_split_tf32_within_float32_contract(Lq, Lk, H, Hkv, D, window):
+    """Three split TF32 products hold 2e-5 against the plain version and
+    ``repro``'s ``ref.mha_ref`` on O(1) inputs."""
+    (jq, jk, jv), (tq, tk, tv) = _flash_inputs(Lq * D + Lk, 1, Lq, Lk, H,
+                                               Hkv, D, "float32")
+    got = _split_attention(tq, tk, tv, window=window)
+    want = kf.flash_attention_plain(tq, tk, tv, window=window)
+    assert (got - want).abs().max().item() <= TOL["float32"]
+    _close(got, ref.mha_ref(jq, jk, jv, causal=True, window=window),
+           TOL["float32"])
+
+
+# q and k ×8 put the logits 64× past O(1): the plain float32 version itself
+# is then about 1e-4 from the float64 answer, so neither it nor the split
+# can hold 2e-5 against the other.  Both are held to the float64 answer:
+# the split's error at most this many times the plain version's.  The two
+# round at different places, so their largest errors trade places (the
+# split's is 0.85-1.83 times the plain version's at these shapes); plain
+# TF32, or a split that drops a cross product, lands hundreds of times
+# over.
+SPLIT_LARGE_RATIO = 4.0
+
+
+@pytest.mark.parametrize("D", kf.HEAD_DIMS)
+def test_flash_split_tf32_large_logits(D):
+    q, k, v = _normals(D, (1, 129, 4, D), (1, 255, 2, D), (1, 255, 2, D))
+    tq, tk, tv = (torch.from_numpy(x) for x in (q * 8, k * 8, v))
+    exact = kf.flash_attention_plain(tq.double(), tk.double(), tv.double())
+    plain_err = (kf.flash_attention_plain(tq, tk, tv) - exact).abs().max()
+    split_err = (_split_attention(tq, tk, tv) - exact).abs().max()
+    tf32_err = (_split_attention(tq, tk, tv, split=False)
+                - exact).abs().max()
+    assert split_err <= SPLIT_LARGE_RATIO * plain_err, (split_err, plain_err)
+    assert tf32_err > 20 * SPLIT_LARGE_RATIO * plain_err, (tf32_err,
+                                                            plain_err)
+
+
+# ---------------------------------------------------------------------------
 # K7
 # ---------------------------------------------------------------------------
 

@@ -387,6 +387,47 @@ def test_cuda_frontier_fused_masks_equal_plain(cuda, queries, depths):
     assert got[3].shape == (len(queries), 4) and int(got[3][:, 0].sum()) > 0
 
 
+# K5 gives a row max_deg lanes (rounded up to a power of two) below 32 and
+# a whole warp from 32 on; the members' k differ, so some rows are
+# narrower than the packed matrix
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_deg", [1, 8, 64])
+def test_cuda_frontier_fused_masks_group_widths(cuda, max_deg):
+    args, _ = _fused_inputs(cuda, [(0, 39, 4), (1, 38, 5), (2, 37, 3)],
+                            [1, 2, 0], rows_each=9)
+    got = fe.frontier_fused_masks(*args, max_deg=max_deg)
+    want = fe.frontier_fused_masks_plain(*args, max_deg=max_deg)
+    torch.cuda.synchronize()
+    for w, g_ in zip(want, got):
+        assert torch.equal(w, g_)
+
+
+@pytest.mark.cuda
+def test_cuda_frontier_fused_masks_table_repeat_and_pad_rows(cuda):
+    """The table entry twice on the same inputs (the launch zeroes the
+    counters itself: the second call's counters come from the blocks the
+    first call freed) and a member whose rows are all PAD."""
+    args, max_deg = _fused_inputs(cuda, [(0, 39, 4), (1, 38, 5),
+                                         (2, 37, 3)], [1, 2, 1])
+    paths, rank = args[0].clone(), args[1]
+    paths[rank == 1] = PAD
+    args = (paths,) + args[1:]
+    p, rk, tv, dv, begins, ends, dsts = args
+    table = torch.from_numpy(fe.fused_member_table(
+        begins, ends, dsts, k1max=p.shape[1], device=p.device)).to(cuda)
+    want = fe.frontier_fused_masks_plain(*args, max_deg=max_deg)
+    assert want[3][1].tolist() == [0, 0, 0, 0]
+    before = fe.fused_launches
+    for _ in range(2):
+        got = fe.frontier_fused_masks_table(p, rk, tv, dv, table,
+                                            max_deg=max_deg)
+        torch.cuda.synchronize()
+        for w, g_ in zip(want, got):
+            assert torch.equal(w, g_)
+        del got
+    assert fe.fused_launches == before + 2
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sharing", ["auto", "off"])
 def test_cuda_fused_batch_equals_solo(cuda, sharing):
@@ -435,8 +476,8 @@ ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def _k6_launches():
-    """K6's launches, both kernels (float32 SIMT, bfloat16 wgmma)."""
-    return kf.simt_launches + kf.wgmma_launches
+    """K6's launches, both kernels (float32 split TF32, bfloat16 wgmma)."""
+    return kf.f32_launches + kf.wgmma_launches
 
 
 def _normal(shape, seed, dtype, device):
@@ -453,6 +494,13 @@ def _normal(shape, seed, dtype, device):
     (2, 130, 130, 4, 4, 256, None),     # D = 256
     (1, 33, 90, 2, 1, 16, 8),           # Lq < Lk with a window
     (1, 512, 512, 16, 8, 128, None),    # tile-aligned, engine-like GQA
+    # float32 tile edges: 128 query rows, 32 keys (64 and 16 at D = 256)
+    (1, 63, 63, 4, 2, 16, None),        # one row short of half a tile
+    (1, 65, 129, 4, 1, 32, None),       # Lq < Lk, one past the edges
+    (2, 127, 127, 8, 2, 64, 40),        # window across a KV tile
+    (1, 129, 255, 4, 4, 128, None),     # one row past a query tile
+    (1, 255, 255, 4, 2, 256, 100),      # D = 256, window
+    (1, 129, 129, 2, 1, 128, 33),       # window one past a KV tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_flash_attention_equals_plain(cuda, B, Lq, Lk, H, Hkv, D,
@@ -468,6 +516,29 @@ def test_cuda_flash_attention_equals_plain(cuda, B, Lq, Lk, H, Hkv, D,
     assert got.dtype == dtype and got.shape == q.shape
     err = (got.float() - want.float()).abs().max().item()
     assert err <= ATTN_TOL[dtype], err
+
+
+# q and k x8 put the logits 64x past O(1), where the float32 plain version
+# is itself about 1e-4 from the float64 answer (tests/test_torch_attention.py
+# shows it on the CPU); kernel and plain version are both held to the
+# float64 answer, the kernel's error at most this multiple of the plain
+# version's
+SPLIT_LARGE_RATIO = 4.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", kf.HEAD_DIMS)
+def test_cuda_flash_attention_float32_large_logits(cuda, D):
+    q = _normal((1, 129, 4, D), 21, torch.float32, cuda) * 8
+    k = _normal((1, 255, 2, D), 22, torch.float32, cuda) * 8
+    v = _normal((1, 255, 2, D), 23, torch.float32, cuda)
+    got = kf.flash_attention(q, k, v)
+    exact = kf.flash_attention_plain(q.double(), k.double(), v.double())
+    plain_err = (kf.flash_attention_plain(q, k, v) - exact).abs().max()
+    err = (got - exact).abs().max()
+    assert bool(torch.isfinite(got).all())
+    assert err <= SPLIT_LARGE_RATIO * plain_err, (err.item(),
+                                                  plain_err.item())
 
 
 @pytest.mark.cuda
@@ -535,10 +606,10 @@ def test_cuda_flash_attention_bf16_tile_edges(cuda, B, Lq, Lk, H, Hkv, D,
     q = _normal((B, Lq, H, D), 11, torch.bfloat16, cuda)
     k = _normal((B, Lk, Hkv, D), 12, torch.bfloat16, cuda)
     v = _normal((B, Lk, Hkv, D), 13, torch.bfloat16, cuda)
-    before, simt = kf.wgmma_launches, kf.simt_launches
+    before, f32 = kf.wgmma_launches, kf.f32_launches
     got = kf.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert kf.wgmma_launches == before + 1 and kf.simt_launches == simt
+    assert kf.wgmma_launches == before + 1 and kf.f32_launches == f32
     want = kf.flash_attention_plain(q, k, v, causal=causal, window=window)
     assert bool(torch.isfinite(got).all())
     err = (got.float() - want.float()).abs().max().item()
@@ -546,13 +617,13 @@ def test_cuda_flash_attention_bf16_tile_edges(cuda, B, Lq, Lk, H, Hkv, D,
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_float32_takes_simt_kernel(cuda):
+def test_cuda_flash_attention_float32_takes_f32_kernel(cuda):
     q = _normal((1, 70, 4, 32), 14, torch.float32, cuda)
     k = _normal((1, 70, 2, 32), 15, torch.float32, cuda)
-    before, wgmma = kf.simt_launches, kf.wgmma_launches
+    before, wgmma = kf.f32_launches, kf.wgmma_launches
     kf.flash_attention(q, k, k)
     torch.cuda.synchronize()
-    assert kf.simt_launches == before + 1 and kf.wgmma_launches == wgmma
+    assert kf.f32_launches == before + 1 and kf.wgmma_launches == wgmma
 
 
 def _split_lengths(S, chunk, B):

@@ -236,3 +236,29 @@ def test_fused_dispatches_fewer_than_solo_chunks(monkeypatch):
     fused_dispatches = ops.device_dispatch_count() - before
     assert 1 <= fused_dispatches < solo_dispatches
     assert fused_dispatches < solo_chunks
+
+
+def test_fused_driver_passes_member_table_rows(monkeypatch):
+    """The fused driver builds each member's row of K5's member table once
+    and hands the stacked rows to every dispatch: they equal the table
+    ``fused_member_table`` builds from that dispatch's arrays.  A table of
+    the wrong shape is refused."""
+    _jidxs, idxs = _members(_graph(), QUERIES)
+    calls = []
+    orig = ops.frontier_expand_fused
+
+    def spy(*args, **kw):
+        calls.append((args, kw))
+        return orig(*args, **kw)
+    monkeypatch.setattr(ops, "frontier_expand_fused", spy)
+    tfused.enumerate_fused_device(idxs, chunk_size=CHUNK)
+    assert calls
+    for args, kw in calls:
+        paths, begins, ends, dsts = args[0], args[4], args[5], args[6]
+        want = fe.fused_member_table(begins, ends, dsts,
+                                     k1max=paths.shape[1], device="cpu")
+        np.testing.assert_array_equal(kw["member_table"], want)
+    args, kw = calls[0]
+    with pytest.raises(ValueError, match="member_table"):
+        orig(*args, max_deg=kw["max_deg"],
+             member_table=kw["member_table"][:-1])
