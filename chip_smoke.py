@@ -20,18 +20,23 @@ Phases, one JSON line each (``{"phase": ...}``):
    deque round, one launch of its persistent kernel) is compared on the
    regions the host reads back (``deque_contract``), each timed call starts
    from a fresh state restored outside the timed window, and the line
-   gives its launches and loop iterations; K1, K2 and K3 also give
-   ``device_ms``, the card's part of a call.
+   gives its launches and loop iterations; K1, K2, K3 and K4 also give
+   ``device_ms``, the card's part of a call, and K4 its time over the
+   transpose (``transposed_ms``).  Then the ``bfs_dense`` line: K4 as one
+   launch for a whole bounded BFS, forward and over the transpose, at the
+   small phase's shape (n = 2000, k = 4), against k plain relaxations.
 3. ``large``   — the main path at scale: ``erdos_renyi(n, 16.0)`` held on
    the card, queries at k = 8 through
    ``PathEnum(backend="device", use_device_index=True).query``: device
    index build, planner, IDX-DFS in the resident work deque (K2, whose
-   kernel runs K1's per-row logic) for full enumerations, and on the
-   frontier kernel (K1) in the host loop for ``first_n``.
+   kernel runs K1's per-row logic) for full enumerations, and on K1's hop
+   entry in the host loop for ``first_n`` (the line gives its hops and K1
+   launches).
 4. ``small``   — the device walk-count DP (K3, K4), which runs only on
    graphs of at most 2048 vertices: ``power_law(2000, 6.0, seed=3)`` with
    ``mode="join"`` and with ``mode="auto"`` at a τ low enough that the
-   full estimator runs.
+   full estimator runs; each query's K4 launches equal its bounded BFS
+   (one launch each).
 5. ``batch``   — the batch engine on the same large graph through
    ``BatchPathEnum(backend="device").run``: the stacked BFS on the card,
    the host index builds, and three legs.  ``fused``: ``--batch`` k = 8
@@ -94,9 +99,15 @@ version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
 times the list-taking entry, which builds and copies the table, and
-``dispatch_ms`` the whole fused expand, drained after each call).  Last, the script
-prints the ``kernels`` line (K1–K7, K6 as its two kernels), the card's
-name and power limit as nvidia-smi gives them, and the ``ok`` line.
+``dispatch_ms`` the whole fused expand, drained after each call).  K1's
+hop entry is held against its plain version at the largest hop of the
+large phase's ``first_n`` leg (the ``frontier_hop`` ``kernel`` line: the
+entry's ``ms`` and ``device_ms``, ``hop_ms`` for the whole hop as the
+driver pays it, drained, and its device operations, at most 7).  Last,
+the script prints the ``kernels`` line (K1–K7, K6 as its two kernels;
+``frontier_hop`` and ``bfs_dense`` beside K1 and K4, whose counts take
+every launch of their kernel from either entry), the card's name and
+power limit as nvidia-smi gives them, and the ``ok`` line.
 Any failed check exits non-zero before those lines.  Without a CUDA
 device, or outside a checkout, it exits non-zero at once.
 """
@@ -123,8 +134,9 @@ TAU = 1e5
 CHUNK = 16384
 PICK_SECONDS = 150.0             # probe budget for the large queries
 
-PATHENUM_KERNELS = ("frontier_masks", "frontier_fused_masks",
-                    "frontier_deque_round", "counting_spmm", "minplus_spmv")
+PATHENUM_KERNELS = ("frontier_masks", "frontier_hop", "frontier_fused_masks",
+                    "frontier_deque_round", "counting_spmm", "minplus_spmv",
+                    "bfs_dense")
 LM_KERNELS = ("flash_attention", "decode_attention")
 LM_BF16_KERNELS = ("flash_attention_sm90", "decode_attention")
 # repro's own kernel tolerances (tests/test_kernels.py): the online
@@ -463,14 +475,22 @@ def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
     dist = np.full(n, inf, np.float32)
     dist[rng.choice(n, 16, replace=False)] = rng.integers(0, 4, 16)
     d = torch.from_numpy(dist).to(dev)
-    got = sr.minplus_spmv(adj, d, inf=inf)
-    want = sr.minplus_spmv_plain(adj, d, inf=inf)
-    err = max_abs_err(torch, [got], [want])
+    err = 0.0
+    for tr in (False, True):
+        got = sr.minplus_spmv(adj, d, inf=inf, transposed=tr)
+        want = sr.minplus_spmv_plain(adj, d, inf=inf, transposed=tr)
+        err = max(err, max_abs_err(torch, [got], [want]))
     check(err == 0, f"minplus_spmv differs from its plain version: {err}")
     b_ms, b_by = bound(n * n * 4 + 2 * n * 4, 2 * n * n)
     rows["minplus_spmv"] = dict(
         max_abs_err=err,
         ms=time_ms(torch, lambda: sr.minplus_spmv(adj, d, inf=inf), 50),
+        device_ms=device_ms(torch, lambda: sr.minplus_spmv(adj, d, inf=inf),
+                            50),
+        transposed_ms=time_ms(torch, lambda: sr.minplus_spmv(
+            adj, d, inf=inf, transposed=True), 50),
+        transposed_device_ms=device_ms(torch, lambda: sr.minplus_spmv(
+            adj, d, inf=inf, transposed=True), 50),
         plain_ms=time_ms(torch, lambda: sr.minplus_spmv_plain(adj, d,
                                                               inf=inf), 50),
         bound_ms=b_ms, bound_by=b_by,
@@ -481,11 +501,144 @@ def kernel_phase(torch, np, en, ops, fe, sr, idx, dev):
     return rows
 
 
+def bfs_dense_row(torch, np, tc, est, ops, sr, g_small, dev):
+    """K4 as one launch for a whole bounded BFS (``ops.bfs_dense``) at the
+    small phase's shape: the dense adjacency of the index the planner
+    builds for 1104 -> 997 at k = 4 on the small graph, from s forward and
+    from t over the transpose, against k plain relaxations."""
+    idx = tc.build_index(g_small, 1104, 997, 4, device=dev)
+    wadj, _amat, inf = est._dense_adjacency(idx)
+    n, k = wadj.shape[0], idx.k
+    err = 0.0
+    for src, tr in ((idx.s, False), (idx.t, True)):
+        got = ops.bfs_dense(wadj, src, k, inf=inf, transposed=tr)
+        want = sr.bfs_dense_plain(wadj, src, k, inf=inf, transposed=tr)
+        err = max(err, max_abs_err(torch, [got], [want]))
+    check(err == 0, f"bfs_dense differs from its plain version: {err}")
+    # the adjacency read once, the output written once; k relaxations of
+    # an add and a min per entry
+    b_ms, b_by = bound(n * n * 4 + n * 4, 2 * k * n * n)
+    row = dict(
+        max_abs_err=err,
+        ms=time_ms(torch, lambda: ops.bfs_dense(wadj, idx.s, k, inf=inf),
+                   50),
+        device_ms=device_ms(torch, lambda: ops.bfs_dense(wadj, idx.s, k,
+                                                         inf=inf), 50),
+        transposed_ms=time_ms(torch, lambda: ops.bfs_dense(
+            wadj, idx.t, k, inf=inf, transposed=True), 50),
+        transposed_device_ms=device_ms(torch, lambda: ops.bfs_dense(
+            wadj, idx.t, k, inf=inf, transposed=True), 50),
+        plain_ms=time_ms(torch, lambda: sr.bfs_dense_plain(
+            wadj, idx.s, k, inf=inf), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=dict(n=n, k=k))
+    emit({"phase": "kernel", "name": "bfs_dense", **row})
+    return row
+
+
+def record_largest_hop(ops):
+    """Wrap ``ops.frontier_expand_readback`` (looked up at call time by the
+    solo host-looped driver) so the arguments of its largest call (rows
+    × fan-out) are kept; returns the record and a function that unwraps
+    it."""
+    orig = ops.frontier_expand_readback
+    seen = {"slots": -1, "calls": 0}
+
+    def wrapped(paths, begin, end, dst, *, depth, t, max_deg,
+                want_cont=True):
+        seen["calls"] += 1
+        slots = len(paths) * max_deg
+        if slots > seen["slots"]:
+            seen.update(slots=slots, args=(paths, begin, end, dst),
+                        kw=dict(depth=depth, t=t, max_deg=max_deg,
+                                want_cont=want_cont))
+        return orig(paths, begin, end, dst, depth=depth, t=t,
+                    max_deg=max_deg, want_cont=want_cont)
+
+    ops.frontier_expand_readback = wrapped
+
+    def restore():
+        ops.frontier_expand_readback = orig
+    return seen, restore
+
+
+def device_ops(torch, fn, reps: int):
+    """Device operations (kernels, copies, memsets) and the card's busy
+    microseconds per call of ``fn``, from ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (len(evs) / reps,
+            sum(e.device_time_total for e in evs) / reps if evs else None)
+
+
+def hop_kernel_row(torch, np, fe, ops, largest, dev):
+    """K1's hop entry against its plain version at the largest hop of the
+    large phase's ``first_n`` leg: ``ms`` and ``device_ms`` time the entry
+    on the chunk already on the card; ``hop_ms`` the whole
+    ``ops.frontier_expand_readback`` (copy in, hop, head and rows back),
+    as the host-looped driver pays a hop, with its device operations and
+    the card's busy time per hop from the profiler."""
+    paths, begin, end, dst = largest["args"]
+    kw = largest["kw"]
+    rows, k1 = paths.shape
+    md = 1 << max(kw["max_deg"] - 1, 0).bit_length()
+    p = torch.from_numpy(np.ascontiguousarray(paths)).to(dev)
+    meta = torch.tensor([kw["depth"], kw["t"]], dtype=torch.int32).to(dev)
+    hop_kw = dict(max_deg=md, want_cont=kw["want_cont"])
+
+    def run():
+        return fe.frontier_hop(p, begin, end, dst, meta, **hop_kw)
+    got = run()
+    want = fe.frontier_hop_plain(p, begin, end, dst, meta, **hop_kw)
+    ne, nc = int(want[2][4]), int(want[2][5])
+    err = max_abs_err(torch, [got[2], got[0][:ne], got[1][:nc]],
+                      [want[2], want[0][:ne], want[1][:nc]])
+    check(err == 0, f"frontier_hop differs from its plain version: {err}")
+    host = ops.frontier_expand_readback(paths, begin, end, dst, **kw)
+    check(host[2] == want[2][:3].tolist(), "frontier_expand_readback's "
+                                           "counters differ")
+    edges, depth = int(want[2][0]), kw["depth"]
+    valid = int((paths[:, depth] >= 0).sum())
+    # the chunk, each valid row's begin/end gathers, one dst read per
+    # candidate edge, each child row written once, [depth, t] and the head
+    nbytes = (rows * k1 * 4 + valid * 8 + edges * 4 + (ne + nc) * k1 * 4
+              + 8 + 32)
+    b_ms, b_by = bound(nbytes, edges * (depth + 4))
+    n_ops, busy = device_ops(torch, lambda: ops.frontier_expand_readback(
+        paths, begin, end, dst, **kw), 20)
+    check(n_ops <= 7, f"a first_n hop makes {n_ops} device operations")
+    row = dict(
+        max_abs_err=err, ms=time_ms(torch, run, 50),
+        device_ms=device_ms(torch, run, 50),
+        hop_ms=dispatch_ms(torch, lambda: ops.frontier_expand_readback(
+            paths, begin, end, dst, **kw), 50),
+        device_ops=n_ops, device_busy_us=busy,
+        plain_ms=time_ms(torch, lambda: fe.frontier_hop_plain(
+            p, begin, end, dst, meta, **hop_kw), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=dict(rows=rows, k1=k1, depth=depth, max_deg=md,
+                   want_cont=kw["want_cont"], edges=edges, n_emit=ne,
+                   n_cont=nc, valid_rows=valid, hops_in_leg=largest["calls"]))
+    emit({"phase": "kernel", "name": "frontier_hop", **row})
+    return row
+
+
 def large_phase(torch, tc, kernels, g, queries, dev):
-    """The main path at scale; returns the outputs to check later."""
+    """The main path at scale; returns the outputs to check later and the
+    largest hop of the ``first_n`` leg."""
     pe = tc.PathEnum(tau=TAU, chunk_size=CHUNK, backend="device",
                      use_device_index=True, device=dev)
+    fe = kernels.frontier_expand
     runs = []
+    largest = None
     for i, (s, t, _idx) in enumerate(queries):
         legs = [("count_only", dict(count_only=True))]
         if i == 0:
@@ -493,10 +646,17 @@ def large_phase(torch, tc, kernels, g, queries, dev):
                      ("first_n", dict(first_n=1000))]
         for leg, kw in legs:
             rounds0 = kernels.ops.deque_rounds
+            k1_0, hops0 = fe.launches, fe.hop_launches
+            seen, restore = record_largest_hop(kernels.ops)
             torch.cuda.synchronize()
-            out = pe.query(g, s, t, K_LARGE, **kw)
+            try:
+                out = pe.query(g, s, t, K_LARGE, **kw)
+            finally:
+                restore()
             r = out.result
             rounds = kernels.ops.deque_rounds - rounds0
+            if leg == "first_n":
+                largest = seen
             runs.append((s, t, leg, kw, out, rounds))
             emit({"phase": "large", "s": s, "t": t, "k": K_LARGE, "leg": leg,
                   "index_edges": out.index.num_index_edges,
@@ -508,13 +668,18 @@ def large_phase(torch, tc, kernels, g, queries, dev):
                   "exhausted": r.exhausted, "deque_rounds": rounds,
                   "last_round_iterations":
                       kernels.ops.last_round_iterations() if rounds else None,
+                  "hops": seen["calls"],
+                  "k1_launches": fe.launches - k1_0,
+                  "k1_hop_launches": fe.hop_launches - hops0,
                   "index_s": out.timing.index_seconds,
                   "plan_s": out.timing.optimize_seconds,
                   "enum_s": out.timing.enumerate_seconds})
-    return runs
+    check(largest is not None and largest["calls"] > 0,
+          "the first_n leg made no hop")
+    return runs, largest
 
 
-def small_phase(np, tc, g, dev):
+def small_phase(np, tc, sr, g, dev):
     """The device DP on a graph small enough for it (n <= 2048)."""
     runs = []
     rng = np.random.default_rng(3)
@@ -526,13 +691,18 @@ def small_phase(np, tc, g, dev):
     for s, t, k in queries:
         for mode, tau in (("join", TAU), ("auto", 1.0)):
             pe = tc.PathEnum(tau=tau, backend="device", device=dev)
+            k4, bfs = sr.minplus_launches, sr.bfs_launches
             out = pe.query(g, s, t, k, mode=mode)
+            k4, bfs = sr.minplus_launches - k4, sr.bfs_launches - bfs
+            check(k4 == bfs, f"small {s}->{t}: {k4} K4 launches for {bfs} "
+                             f"bounded BFS")
             runs.append((s, t, k, mode, tau, out))
             dp = out.plan.dp
             emit({"phase": "small", "s": s, "t": t, "k": k, "mode": mode,
                   "tau": tau, "plan": out.plan.method, "cut": out.plan.cut,
                   "dp_backend": dp.backend_used if dp else None,
-                  "count": out.result.count,
+                  "count": out.result.count, "bfs_dense_calls": bfs,
+                  "k4_launches": k4,
                   "plan_s": out.timing.optimize_seconds,
                   "enum_s": out.timing.enumerate_seconds})
     return runs
@@ -1354,11 +1524,14 @@ def main() -> None:
     g_small = tc.power_law(2000, 6.0, seed=3)
 
     rows = kernel_phase(torch, np, en, ops, fe, sr, queries[0][2], dev)
+    rows["bfs_dense"] = bfs_dense_row(torch, np, tc, est, ops, sr, g_small,
+                                      dev)
 
     # the main path: counts from 0, read right after
     kernels.reset_launch_counts()
-    large_runs = large_phase(torch, tc, kernels, g, queries, dev)
-    small_runs = small_phase(np, tc, g_small, dev)
+    large_runs, largest_hop = large_phase(torch, tc, kernels, g, queries,
+                                          dev)
+    small_runs = small_phase(np, tc, sr, g_small, dev)
     batch_runs, index_of, largest = batch_phase(
         torch, tc, fe, ops, g, picks, shared, dev, args.batch)
     torch.cuda.synchronize()
@@ -1366,6 +1539,8 @@ def main() -> None:
 
     rows["frontier_fused_masks"] = fused_kernel_row(torch, np, fe, ops, largest,
                                                     dev)
+    rows["frontier_hop"] = hop_kernel_row(torch, np, fe, ops, largest_hop,
+                                          dev)
     check_phase(np, tc, large_runs, small_runs, g_small, dev)
     check_batch(tc, batch_runs, index_of, dev)
     for name in PATHENUM_KERNELS:
@@ -1373,6 +1548,7 @@ def main() -> None:
     emit({"phase": "check", "ok": True,
           "seconds": time.perf_counter() - t_start})
     del large_runs, small_runs, batch_runs, index_of, largest, picks, shared
+    del largest_hop
     del queries, dg
     torch.cuda.empty_cache()
 
@@ -1456,6 +1632,8 @@ def main() -> None:
     where = {
         "frontier_masks": ("src/repro_torch/kernels/csrc/frontier.cu",
                            "src/repro/kernels/frontier_expand.py:47"),
+        "frontier_hop": ("src/repro_torch/kernels/csrc/frontier.cu",
+                         "src/repro/kernels/frontier_expand.py:47"),
         "frontier_fused_masks": (
             "src/repro_torch/kernels/csrc/frontier_fused.cu",
             "src/repro/kernels/frontier_expand.py:95"),
@@ -1466,6 +1644,8 @@ def main() -> None:
                           "src/repro/kernels/semiring_spmm.py:78"),
         "minplus_spmv": ("src/repro_torch/kernels/csrc/semiring.cu",
                          "src/repro/kernels/semiring_spmm.py:36"),
+        "bfs_dense": ("src/repro_torch/kernels/csrc/semiring.cu",
+                      "src/repro/kernels/semiring_spmm.py:36"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:27"),
         "flash_attention_sm90": (

@@ -292,10 +292,11 @@ def _fanout_segments(cnt: np.ndarray, budget: int) -> List[Tuple[int, int]]:
 
 
 def _device_step(idx: LightweightIndex):
-    """The device expansion step: one frontier-kernel launch per fan-out
-    segment of the chunk, Fig.-6 counters read back with the row counts
-    in one transfer.  The host sizes segments off the offset arrays
-    (which also shortcuts all-dead chunks without a launch)."""
+    """The device expansion step: one hop of K1 per fan-out segment of the
+    chunk, its Fig.-6 counters and row counts read back in one small copy,
+    then its rows (``ops.frontier_expand_readback``).  The host sizes
+    segments off the offset arrays (which also shortcuts all-dead chunks
+    without a launch)."""
     from ..kernels import ops as kops
     k, t = idx.k, idx.t
     dev = idx.device_arrays()
@@ -311,20 +312,18 @@ def _device_step(idx: LightweightIndex):
         emit_parts: List[np.ndarray] = []
         cont_parts: List[np.ndarray] = []
         for lo, hi in _fanout_segments(cnt, DEVICE_SLOT_BUDGET):
-            emit_rows, cont_rows, n_emit, n_cont, counters = \
-                kops.frontier_expand(paths[lo:hi], dev.begin, dev.end,
-                                     dev.dst, depth=depth, t=t,
-                                     max_deg=max(int(cnt[lo:hi].max()), 1),
-                                     want_cont=want_cont)
-            edges, partials, invalid, _, ne, nc = torch.cat(
-                [counters.long(), n_emit.view(1), n_cont.view(1)]).tolist()
+            emit_rows, cont_rows, (edges, partials, invalid) = \
+                kops.frontier_expand_readback(
+                    paths[lo:hi], dev.begin, dev.end, dev.dst, depth=depth,
+                    t=t, max_deg=max(int(cnt[lo:hi].max()), 1),
+                    want_cont=want_cont)
             stats.edges_accessed += edges
             stats.partials_generated += partials
             stats.invalid_partials += invalid
-            if ne:
-                emit_parts.append(emit_rows[:ne].cpu().numpy())
-            if want_cont and nc:
-                cont_parts.append(cont_rows[:nc].cpu().numpy())
+            if emit_rows is not None:
+                emit_parts.append(emit_rows)
+            if cont_rows is not None:
+                cont_parts.append(cont_rows)
         # one array per chunk, like the host step: _trim_to_first_n trims
         # only the driver's last appended block
         emit_out = np.concatenate(emit_parts) if emit_parts else None

@@ -127,7 +127,7 @@ def _bfs_levels(index: LightweightIndex, wadj: torch.Tensor, inf: float):
     from ..kernels import ops as kops
     k = index.k
     dd_s = kops.bfs_dense(wadj, index.s, k, inf=inf)
-    dd_t = kops.bfs_dense(wadj.T.contiguous(), index.t, k, inf=inf)
+    dd_t = kops.bfs_dense(wadj, index.t, k, inf=inf, transposed=True)
     dist_s = torch.clamp(dd_s, max=k + 1).to(torch.int64)
     dist_t = torch.clamp(dd_t, max=k + 1).to(torch.int64)
     return dist_s.cpu().numpy(), dist_t.cpu().numpy()

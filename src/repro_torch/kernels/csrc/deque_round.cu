@@ -83,65 +83,6 @@ struct Geometry {
   int round_pops;
 };
 
-// Sum of an int4 over the block; every thread gets the total.
-__device__ int4 block_sum(int4 v, int4* red) {
-  for (int off = 16; off > 0; off >>= 1) {
-    v.x += __shfl_down_sync(kFull, v.x, off);
-    v.y += __shfl_down_sync(kFull, v.y, off);
-    v.z += __shfl_down_sync(kFull, v.z, off);
-    v.w += __shfl_down_sync(kFull, v.w, off);
-  }
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int4 s = make_int4(0, 0, 0, 0);
-  for (int w = 0; w < kWarps; ++w) {
-    s.x += red[w].x;
-    s.y += red[w].y;
-    s.z += red[w].z;
-    s.w += red[w].w;
-  }
-  __syncthreads();  // red is reused
-  return s;
-}
-
-// Exclusive prefix of (emit, cont) counts over the block's threads in
-// thread order; `total` gets the block's sum.
-__device__ int2 block_scan(int2 v, int2* red, int2* total) {
-  const int lane = threadIdx.x & 31;
-  int2 inc = v;
-  for (int off = 1; off < 32; off <<= 1) {
-    const int x = __shfl_up_sync(kFull, inc.x, off);
-    const int y = __shfl_up_sync(kFull, inc.y, off);
-    if (lane >= off) {
-      inc.x += x;
-      inc.y += y;
-    }
-  }
-  if (lane == 31) red[threadIdx.x >> 5] = inc;
-  __syncthreads();
-  int2 base = make_int2(0, 0);
-  int2 tot = make_int2(0, 0);
-  for (int w = 0; w < kWarps; ++w) {
-    const int2 s = red[w];
-    if (w < static_cast<int>(threadIdx.x >> 5)) {
-      base.x += s.x;
-      base.y += s.y;
-    }
-    tot.x += s.x;
-    tot.y += s.y;
-  }
-  __syncthreads();  // red is reused
-  *total = tot;
-  return make_int2(base.x + inc.x - v.x, base.y + inc.y - v.y);
-}
-
-// The child of a parent row: the row with `v` at column depth + 1.
-__device__ __forceinline__ void write_child(int* __restrict__ out,
-                                            const int* prow, int k1,
-                                            int col, int v) {
-  for (int c = 0; c < k1; ++c) out[c] = c == col ? v : prow[c];
-}
-
 __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
     int* arena, int* meta_depth, int* meta_len, const int* top_in,
     const int* nc_in, const int* __restrict__ begin,
@@ -213,7 +154,8 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
         invalid += frontier::row_invalid(row, dups, alive);
       }
     }
-    const int4 bsum = block_sum(make_int4(mine.x, mine.y, 0, 0), red4);
+    const int4 bsum =
+        frontier::block_sum<kWarps>(make_int4(mine.x, mine.y, 0, 0), red4);
     if (threadIdx.x == 0) blk_cnt[b] = make_int2(bsum.x, bsum.y);
     grid.sync();
 
@@ -228,7 +170,7 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
       acc.z += v.x;
       acc.w += v.y;
     }
-    acc = block_sum(acc, red4);
+    acc = frontier::block_sum<kWarps>(acc, red4);
     const long long n_emit = acc.z;
     const long long n_cont = acc.w;
     const long long n_pieces = (n_cont + g.cs - 1) / g.cs;
@@ -244,7 +186,8 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
       const int r = tile + threadIdx.x;
       int2 tile_tot;
       const int2 ex =
-          block_scan(r < r1 ? row_cnt[r] : make_int2(0, 0), red2, &tile_tot);
+          frontier::block_scan<kWarps>(r < r1 ? row_cnt[r] : make_int2(0, 0),
+                                       red2, &tile_tot);
       row_off[threadIdx.x] = make_int2(run.x + ex.x, run.y + ex.y);
       __syncthreads();
       const int in_tile = r1 - tile < kThreads ? r1 - tile : kThreads;
@@ -264,7 +207,8 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
           const unsigned cm = __ballot_sync(kFull, c);
           if (s.emit) {
             const long long pos = ne + eo + __popc(em & lt);
-            write_child(emitbuf + pos * k1, prow, k1, cdepth + 1, s.v);
+            frontier::write_child(emitbuf + pos * k1, prow, k1, cdepth + 1,
+                                  s.v);
             emitlen[pos] = cdepth + 1;
           }
           if (c) {
@@ -274,7 +218,8 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
             const long long dest = cstart + n_cont
                                    - (hi < n_cont ? hi : n_cont)
                                    + (crank - piece * g.cs);
-            write_child(arena + dest * k1, prow, k1, cdepth + 1, s.v);
+            frontier::write_child(arena + dest * k1, prow, k1, cdepth + 1,
+                                  s.v);
           }
           eo += __popc(em);
           co += __popc(cm);
@@ -295,7 +240,8 @@ __global__ void __launch_bounds__(kThreads, 1) deque_round_kernel(
   // the counters were zeroed before the first barrier; one more barrier
   // orders that before the adds when the round made no pop
   grid.sync();
-  const int4 ctr = block_sum(make_int4(edges, invalid, 0, 0), red4);
+  const int4 ctr =
+      frontier::block_sum<kWarps>(make_int4(edges, invalid, 0, 0), red4);
   if (threadIdx.x == 0) {
     atomicAdd(&scal[kCounters + 0], ctr.x);
     atomicAdd(&scal[kCounters + 1], ctr.x);

@@ -1,31 +1,48 @@
-// K1: one IDX-DFS hop over a chunk of partial paths (the frontier masks).
+// K1: one IDX-DFS hop over a chunk of partial paths of one query.
 //
 // Replaces the TPU kernel src/repro/kernels/frontier_expand.py
-// `_frontier_kernel` (entry `frontier_expand_masks`).  For each row of the
-// (C, k+1) int32 path matrix, all at one depth: read the last vertex v,
-// gather begin[v] and end[v, b] with b = k - depth - 1, read up to max_deg
-// candidates from dst, drop those already on the row's prefix, and split
-// the rest into emit (== t) and continue.  Outputs the (C, max_deg)
-// candidate / emit / continue matrices and adds the Fig.-6 counters
-// [edges, edges, invalid, 0] into `counters` (zeroed by the caller).
+// `_frontier_kernel` (entry `frontier_expand_masks`) and, for the hop
+// entry, the compaction that `repro`'s `ops._frontier_expand_jit` fuses
+// after it.  For each row of the (rows, k+1) int32 path matrix, all at one
+// depth: read the last vertex v, gather begin[v] and end[v, b] with
+// b = k - depth - 1, read up to max_deg candidates from dst, drop those
+// already on the row's prefix, and split the rest into emit (== t) and
+// continue.  The Fig.-6 counters are [edges, edges, invalid, 0].
+//
+// One per-row phase (frontier.cuh, shared with K2 and K5), three
+// epilogues:
+//  * masks (`frontier_masks_launch`): the (rows, max_deg) candidate /
+//    emit / continue matrices and the counters, which the launch function
+//    zeroes on the stream before the kernel;
+//  * hop (`frontier_hop_launch`, two launches): the children themselves,
+//    in the flat row-major (row, slot) order of a prefix-sum compaction
+//    (`frontier_expand.compact` + `children`), so emission order is the host
+//    driver's.  The count launch sums each block's emit and continue
+//    children and counters; the write launch gives each block the
+//    exclusive prefix of the block totals before it, ranks its rows by a
+//    block scan and each row's children by ballots, and writes every child
+//    row once, a group's children as one run of consecutive ints.  The
+//    masks never reach device memory.  Block 0 of the write launch writes
+//    `head` = [edges, edges, invalid, 0, n_emit, n_cont, 0, 0], which the
+//    host reads in one small copy; no counter needs zeroing.
 //
 // What bounds it on the H100: bytes.  Per candidate slot it reads one dst
-// entry (4 B) and compares it with at most k+1 prefix entries that sit in
-// L1, and it writes three int32 outputs (12 B); there are a handful of
-// integer operations per byte, far below the card's compute rate.  The
-// gathers into begin/end/dst are irregular, so the sustained rate is the
-// rate of scattered 32-byte sectors, not the streaming rate.
+// entry (4 B); the masks write three int32 outputs a slot (12 B), the hop
+// one (k+1)-int row a child.  The gathers into begin/end/dst are
+// irregular, so the sustained rate is that of scattered 32-byte sectors.
 //
-// Design: one warp per row (the per-row logic is in frontier.cuh, shared
-// with the resident deque round K2).  Lanes walk the row's candidate slots in
-// steps of 32, so the dst reads of one warp are contiguous (one index
-// segment per row) and the output writes are coalesced.  The row prefix
-// is read by every lane from the same addresses (a broadcast through L1).
-// The dead-row test and the duplicate count are warp votes; the block
-// sums its warps' counters in shared memory and issues one atomicAdd per
-// counter.  Integer sums are exact in any order, so the counters equal
-// the plain version's.  Compaction into rows (which must keep row-major
-// order) is left to the wrapper, as on the TPU.
+// Design:
+//  * A row gets a group of W lanes, W = max_deg rounded up to a power of
+//    two and at most 32 (a warp serves 32 / W rows); the group walks the
+//    row's slots W at a time (contiguous dst reads, coalesced mask
+//    writes).  The row's prefix is held in the group's lane registers and
+//    tested by shuffles (frontier::PrefixInLanes), not read by every lane.
+//  * The grid is at most kBlocksPerSm blocks an SM; each block owns a
+//    contiguous range of rows and walks it kThreads / W rows a step, so a
+//    block's children are contiguous in the output.
+//  * Counters are summed per group, per block, then added once a block
+//    (masks) or stored as the block's total (hop).  Integer sums are exact
+//    in any order, so the counters equal the plain version's.
 
 #include <cuda_runtime.h>
 
@@ -33,68 +50,339 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kBlocksPerSm = 4;
+constexpr int kMaxGrid = 1024;  // block totals the hop's scratch holds
+constexpr int kHead = 8;        // ints of the hop's head
+using frontier::kFull;
+using frontier::kPad;
 
-__global__ void frontier_masks_kernel(
-    const int* __restrict__ paths, const int* __restrict__ begin,
-    const int* __restrict__ end, const int* __restrict__ dst,
-    const int* __restrict__ meta, int* __restrict__ vnew,
-    int* __restrict__ emit, int* __restrict__ cont,
-    int* __restrict__ counters, int rows, int k1, int max_deg, int mf) {
-  __shared__ int blk_edges;
-  __shared__ int blk_invalid;
-  if (threadIdx.x == 0) {
-    blk_edges = 0;
-    blk_invalid = 0;
-  }
-  __syncthreads();
+struct Hop {
+  const int* paths;
+  const int* begin;
+  const int* end;
+  const int* dst;
+  const int* meta;  // [depth, t]
+  int rows;
+  int k1;
+  int max_deg;
+  int mf;
+  int width;  // W
+};
 
-  const int depth = meta[0];
-  const int t = meta[1];
+// This thread's lane group: W lanes that serve one row.
+struct Group {
+  int sub;         // lane within the group
+  int leader;      // the group's first lane in the warp
+  unsigned mask;   // the group's lanes
+  unsigned below;  // the group's lanes below this one
+  int per_step;    // rows a block walks at once
+  int slot;        // this group's row within a step
+};
+
+__device__ __forceinline__ Group group_of(int width) {
   const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  Group g;
+  g.sub = lane & (width - 1);
+  g.leader = lane - g.sub;
+  g.mask = width == 32 ? kFull : ((1u << width) - 1u) << g.leader;
+  g.below = ((1u << lane) - 1u) & g.mask;
+  g.per_step = kThreads / width;
+  g.slot = threadIdx.x / width;
+  return g;
+}
 
-  if (row < rows) {  // uniform across the warp
-    const frontier::Row r = frontier::row_window(
-        paths + static_cast<long long>(row) * k1, begin, end, k1, depth, k1);
-    bool alive = false;
-    int dups = 0;
-    for (int j0 = 0; j0 < max_deg; j0 += 32) {
-      const int j = j0 + lane;
-      const frontier::Slot s = frontier::row_slot(
-          r, dst, mf, t, j, max_deg, frontier::PrefixInMemory{r.prow, depth});
-      if (j < max_deg) {
-        const long long o = static_cast<long long>(row) * max_deg + j;
-        vnew[o] = (s.emit || s.cont) ? s.v : frontier::kPad;
+// The contiguous rows [r0, r1) of this block: whole steps of per_step
+// rows, cut evenly across the grid.
+__device__ __forceinline__ int2 block_rows(int rows, int per_step) {
+  const long long steps = (rows + per_step - 1) / per_step;
+  const long long s0 = steps * blockIdx.x / gridDim.x;
+  const long long s1 = steps * (blockIdx.x + 1) / gridDim.x;
+  const long long r1 = s1 * per_step;
+  return make_int2(static_cast<int>(s0 * per_step),
+                   static_cast<int>(r1 < rows ? r1 : rows));
+}
+
+// Prefix entries a row at `depth` has, 0..depth, within the row's width:
+// the one depth of a chunk bounds the prefix test of all its rows.
+__device__ __forceinline__ int depth_span(int depth, int k1) {
+  return depth < 0 ? 0 : (depth + 1 < k1 ? depth + 1 : k1);
+}
+
+// The per-row phase: the row's candidate window and its prefix in the
+// group's registers.  A row past `live` is inert (no candidates).
+struct RowPass {
+  frontier::Row row;
+  frontier::PrefixInLanes prefix;
+  int depth;
+  int t;
+  int sub;
+
+  __device__ __forceinline__ RowPass(const Hop& h, int r, bool live,
+                                     const Group& g)
+      : row{h.paths, -1, 0, 0, false},
+        prefix{h.paths, kPad, -1, g.sub, h.width,
+               depth_span(h.meta[0], h.k1)},
+        depth(h.meta[0]),
+        t(h.meta[1]),
+        sub(g.sub) {
+    if (live)
+      row = frontier::row_window(h.paths + static_cast<long long>(r) * h.k1,
+                                 h.begin, h.end, h.k1, depth, h.k1);
+    const int d = row.valid ? depth : -1;  // no prefix test otherwise
+    prefix.prow = row.prow;
+    prefix.depth = d;
+    prefix.first = g.sub <= d && g.sub < h.k1 ? row.prow[g.sub] : kPad;
+  }
+
+  // the group's slot j0 + sub
+  __device__ __forceinline__ frontier::Slot slot(const Hop& h, int j0) const {
+    return frontier::row_slot(row, h.dst, h.mf, t, j0 + sub, h.max_deg,
+                              prefix);
+  }
+};
+
+// One row's counts over all its slot groups: emit and continue children,
+// and whether any candidate survived and how many were duplicates.
+struct RowCounts {
+  int emit = 0;
+  int cont = 0;
+  int dups = 0;
+  bool alive = false;
+
+  __device__ __forceinline__ void add(const frontier::Slot& s,
+                                      const Group& g, bool want_cont) {
+    emit += __popc(__ballot_sync(kFull, s.emit) & g.mask);
+    cont += __popc(__ballot_sync(kFull, s.cont && want_cont) & g.mask);
+    alive |= (__ballot_sync(kFull, s.emit || s.cont) & g.mask) != 0;
+    dups += __popc(__ballot_sync(kFull, s.in_range && s.dup) & g.mask);
+  }
+};
+
+__global__ void __launch_bounds__(kThreads) frontier_masks_kernel(
+    Hop h, int* __restrict__ vnew, int* __restrict__ emit,
+    int* __restrict__ cont, int* __restrict__ counters) {
+  __shared__ int4 red[kWarps];
+  const Group g = group_of(h.width);
+  const int2 rg = block_rows(h.rows, g.per_step);
+  int edges = 0, invalid = 0;  // on each group's first lane
+  for (int base = rg.x; base < rg.y; base += g.per_step) {
+    const int r = base + g.slot;
+    const bool live = r < rg.y;
+    const RowPass rp(h, r, live, g);
+    RowCounts rc;
+    for (int j0 = 0; j0 < h.max_deg; j0 += h.width) {
+      const frontier::Slot s = rp.slot(h, j0);
+      const int j = j0 + g.sub;
+      if (live && j < h.max_deg) {
+        const long long o = static_cast<long long>(r) * h.max_deg + j;
+        vnew[o] = (s.emit || s.cont) ? s.v : kPad;
         emit[o] = s.emit ? 1 : 0;
         cont[o] = s.cont ? 1 : 0;
       }
-      alive |= __any_sync(0xffffffffu, s.emit || s.cont);
-      dups += __popc(__ballot_sync(0xffffffffu, s.in_range && s.dup));
+      rc.add(s, g, true);
     }
-    if (lane == 0) {
-      atomicAdd(&blk_edges, frontier::row_edges(r));
-      atomicAdd(&blk_invalid, frontier::row_invalid(r, dups, alive));
+    if (g.sub == 0 && live) {
+      edges += frontier::row_edges(rp.row);
+      invalid += frontier::row_invalid(rp.row, rc.dups, rc.alive);
     }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    atomicAdd(&counters[0], blk_edges);
-    atomicAdd(&counters[1], blk_edges);
-    atomicAdd(&counters[2], blk_invalid);
+  const int4 tot =
+      frontier::block_sum<kWarps>(make_int4(edges, invalid, 0, 0), red);
+  if (threadIdx.x == 0 && (tot.x != 0 || tot.y != 0)) {
+    atomicAdd(&counters[0], tot.x);
+    atomicAdd(&counters[1], tot.x);
+    atomicAdd(&counters[2], tot.y);
   }
+}
+
+// Hop, count launch: blk[block] = (emit, cont, edges, invalid) of the
+// block's rows.
+__global__ void __launch_bounds__(kThreads) frontier_hop_count_kernel(
+    Hop h, int want_cont, int4* __restrict__ blk) {
+  __shared__ int4 red[kWarps];
+  const Group g = group_of(h.width);
+  const int2 rg = block_rows(h.rows, g.per_step);
+  int4 mine = make_int4(0, 0, 0, 0);
+  for (int base = rg.x; base < rg.y; base += g.per_step) {
+    const int r = base + g.slot;
+    const bool live = r < rg.y;
+    const RowPass rp(h, r, live, g);
+    RowCounts rc;
+    for (int j0 = 0; j0 < h.max_deg; j0 += h.width)
+      rc.add(rp.slot(h, j0), g, want_cont != 0);
+    if (g.sub == 0 && live) {
+      mine.x += rc.emit;
+      mine.y += rc.cont;
+      mine.z += frontier::row_edges(rp.row);
+      mine.w += frontier::row_invalid(rp.row, rc.dups, rc.alive);
+    }
+  }
+  const int4 tot = frontier::block_sum<kWarps>(mine, red);
+  if (threadIdx.x == 0) blk[blockIdx.x] = tot;
+}
+
+// The children of one kind that a group's slot batch makes (`mine` on the
+// lanes of `mask`) at rows [o, o + popc(mask)) of `out`: the lanes stage
+// the children's vertices in `sv` (the group's W slots of shared memory)
+// and write the rows' k1 ints together, consecutive lanes on consecutive
+// ints.  Every lane of the warp calls it.
+__device__ __forceinline__ long long write_children(
+    int* __restrict__ out, long long o, unsigned mask, bool mine, int v,
+    const int* prow, int k1, int col, const Group& g, int width, int* sv) {
+  __syncwarp();  // the previous batch's readers are done with sv
+  if (mine) sv[__popc(mask & g.below)] = v;
+  __syncwarp();
+  const int total = __popc(mask) * k1;
+  int* dst = out + o * k1;
+  for (int e = g.sub; e < total; e += width) {
+    const int q = e / k1;
+    const int c = e - q * k1;
+    dst[e] = c == col ? sv[q] : prow[c];
+  }
+  return o + __popc(mask);
+}
+
+// Hop, write launch: every child row at its flat row-major rank.
+__global__ void __launch_bounds__(kThreads) frontier_hop_write_kernel(
+    Hop h, int want_cont, const int4* __restrict__ blk,
+    int* __restrict__ head, int* __restrict__ emit_rows,
+    int* __restrict__ cont_rows) {
+  __shared__ int4 red4[kWarps];
+  __shared__ int2 red2[kWarps];
+  __shared__ int sv[kThreads];
+  const Group g = group_of(h.width);
+  const int2 rg = block_rows(h.rows, g.per_step);
+  int* const gsv = sv + (threadIdx.x - g.sub);  // this group's W slots
+
+  // the children of the blocks before this one, and of all blocks
+  int4 before = make_int4(0, 0, 0, 0);
+  int4 all = make_int4(0, 0, 0, 0);
+  for (int i = threadIdx.x; i < gridDim.x; i += kThreads) {
+    const int4 v = blk[i];
+    if (i < static_cast<int>(blockIdx.x)) {
+      before.x += v.x;
+      before.y += v.y;
+    }
+    all.x += v.x;
+    all.y += v.y;
+    all.z += v.z;
+    all.w += v.w;
+  }
+  before = frontier::block_sum<kWarps>(before, red4);
+  all = frontier::block_sum<kWarps>(all, red4);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    head[0] = all.z;
+    head[1] = all.z;
+    head[2] = all.w;
+    head[3] = 0;
+    head[4] = all.x;
+    head[5] = all.y;
+    head[6] = 0;
+    head[7] = 0;
+  }
+
+  const int col = h.meta[0] + 1;
+  long long run_e = before.x;  // children of the rows before this step
+  long long run_c = before.y;
+  for (int base = rg.x; base < rg.y; base += g.per_step) {
+    const int r = base + g.slot;
+    const bool live = r < rg.y;
+    const RowPass rp(h, r, live, g);
+    RowCounts rc;
+    frontier::Slot first{};
+    for (int j0 = 0; j0 < h.max_deg; j0 += h.width) {
+      const frontier::Slot s = rp.slot(h, j0);
+      if (j0 == 0) first = s;
+      rc.add(s, g, want_cont != 0);
+    }
+    // rank the step's rows: each group's count on its first lane
+    int2 step_tot;
+    const int2 ex = frontier::block_scan<kWarps>(
+        g.sub == 0 ? make_int2(rc.emit, rc.cont) : make_int2(0, 0), red2,
+        &step_tot);
+    long long eo = run_e + __shfl_sync(kFull, ex.x, g.leader);
+    long long co = run_c + __shfl_sync(kFull, ex.y, g.leader);
+    for (int j0 = 0; j0 < h.max_deg; j0 += h.width) {
+      const frontier::Slot s = j0 == 0 ? first : rp.slot(h, j0);
+      const bool c = s.cont && want_cont;
+      const unsigned em = __ballot_sync(kFull, s.emit) & g.mask;
+      const unsigned cm = __ballot_sync(kFull, c) & g.mask;
+      eo = write_children(emit_rows, eo, em, s.emit, s.v, rp.row.prow, h.k1,
+                          col, g, h.width, gsv);
+      co = write_children(cont_rows, co, cm, c, s.v, rp.row.prow, h.k1, col,
+                          g, h.width, gsv);
+    }
+    run_e += step_tot.x;
+    run_c += step_tot.y;
+  }
+}
+
+// W for a fan-out bound: max_deg rounded up to a power of two, at most 32.
+int group_width(int max_deg) {
+  int width = 1;
+  while (width < max_deg && width < 32) width *= 2;
+  return width;
+}
+
+// Blocks for `rows` rows: no more than the steps of rows, kBlocksPerSm an
+// SM, and kMaxGrid.
+int grid_for(int rows, int width) {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 1;
+  const int per_step = kThreads / width;
+  const long long steps = (static_cast<long long>(rows) + per_step - 1)
+                          / per_step;
+  long long g = static_cast<long long>(kBlocksPerSm) * sms[dev];
+  if (g > kMaxGrid) g = kMaxGrid;
+  return static_cast<int>(steps < g ? steps : g);
 }
 
 }  // namespace
 
+// The masks: `counters` (4,) is zeroed here, on the stream, before the
+// kernel.
 extern "C" int frontier_masks_launch(
     const int* paths, const int* begin, const int* end, const int* dst,
     const int* meta, int* vnew, int* emit, int* cont, int* counters,
     int rows, int k1, int max_deg, int mf, cudaStream_t stream) {
-  if (rows <= 0) return 0;
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  frontier_masks_kernel<<<blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      paths, begin, end, dst, meta, vnew, emit, cont, counters, rows, k1,
-      max_deg, mf);
+  cudaError_t err = cudaMemsetAsync(counters, 0, 4 * sizeof(int), stream);
+  if (err != cudaSuccess || rows <= 0) return static_cast<int>(err);
+  const Hop h{paths, begin, end, dst, meta, rows, k1, max_deg, mf,
+              group_width(max_deg)};
+  frontier_masks_kernel<<<grid_for(rows, h.width), kThreads, 0, stream>>>(
+      h, vnew, emit, cont, counters);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The hop: `head` (8,) gets [edges, edges, invalid, 0, n_emit, n_cont, 0,
+// 0]; the first n_emit rows of `emit_rows` and the first n_cont rows of
+// `cont_rows` (each (., k1) int32) the children in flat row-major order.
+// `blk` is scratch for kMaxGrid int4 block totals.  want_cont = 0 writes
+// no continue child and n_cont = 0; the counters are unaffected.
+extern "C" int frontier_hop_launch(
+    const int* paths, const int* begin, const int* end, const int* dst,
+    const int* meta, int* head, int* blk, int* emit_rows, int* cont_rows,
+    int rows, int k1, int max_deg, int mf, int want_cont,
+    cudaStream_t stream) {
+  if (rows <= 0)
+    return static_cast<int>(
+        cudaMemsetAsync(head, 0, kHead * sizeof(int), stream));
+  const Hop h{paths, begin, end, dst, meta, rows, k1, max_deg, mf,
+              group_width(max_deg)};
+  const int grid = grid_for(rows, h.width);
+  int4* totals = reinterpret_cast<int4*>(blk);
+  frontier_hop_count_kernel<<<grid, kThreads, 0, stream>>>(h, want_cont,
+                                                           totals);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  frontier_hop_write_kernel<<<grid, kThreads, 0, stream>>>(
+      h, want_cont, totals, head, emit_rows, cont_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,9 +1,11 @@
 // The per-row logic of one IDX-DFS hop (the frontier masks), shared by K1
 // (frontier.cu), the resident deque round K2 (deque_round.cu) and the fused
 // multi-query hop K5 (frontier_fused.cu), so the three cannot drift apart.
-// K1 and K2 give one warp to a row, whose lanes walk the row's candidate
-// slots in steps of 32; K5 gives a row a group of lanes and brings its own
-// prefix test (lane registers instead of memory reads).
+// K2 gives one warp to a row, whose lanes walk the row's candidate slots in
+// steps of 32 and read the prefix from memory; K1 and K5 give a row a
+// group of lanes and test the prefix held in lane registers
+// (PrefixInLanes).  The block-wide sum and scan that K1's hop and K2 rank
+// their children with are here too.
 //
 // For a row at `depth` of the (., k+1) int32 path matrix: read the last
 // vertex v, gather begin[v] and end[v, b] with b = k - depth - 1 (clipped
@@ -18,6 +20,7 @@
 namespace frontier {
 
 constexpr int kPad = -1;
+constexpr unsigned kFull = 0xffffffffu;
 
 // One row's candidate window in dst.
 struct Row {
@@ -90,6 +93,33 @@ struct PrefixInMemory {
   }
 };
 
+// The prefix test of a row whose group of W lanes holds entries
+// 0..W-1 of the prefix in `first` (PAD past depth); entries from W on, if
+// the rows are wider than W, are read a group-width at a time.  `span`
+// entries are tested, at least depth + 1 of every row of the warp and the
+// same on every lane, so every lane runs the same shuffles.
+struct PrefixInLanes {
+  const int* prow;
+  int first;
+  int depth;
+  int sub;
+  int width;  // W
+  int span;
+  __device__ __forceinline__ bool operator()(int v, bool in_range) const {
+    bool dup = false;
+    for (int c0 = 0; c0 < span; c0 += width) {
+      const int own = c0 == 0 ? first
+                      : (c0 + sub <= depth ? prow[c0 + sub] : kPad);
+      const int n = span - c0 < width ? span - c0 : width;
+      for (int s = 0; s < n; ++s) {
+        const int x = __shfl_sync(kFull, own, s, width);
+        dup |= c0 + s <= depth && x == v;
+      }
+    }
+    return dup && in_range;
+  }
+};
+
 // The row's Fig.-6 contributions from the warp's votes over all its slot
 // groups: edges (= partials) and invalid.
 __device__ __forceinline__ int row_edges(const Row& r) {
@@ -99,6 +129,68 @@ __device__ __forceinline__ int row_edges(const Row& r) {
 __device__ __forceinline__ int row_invalid(const Row& r, int dups,
                                            bool alive) {
   return dups + ((r.valid && !alive) ? 1 : 0);
+}
+
+// Sum of an int4 over a block of kWarps warps; every thread gets the
+// total.  `red` holds kWarps entries.
+template <int kWarps>
+__device__ int4 block_sum(int4 v, int4* red) {
+  for (int off = 16; off > 0; off >>= 1) {
+    v.x += __shfl_down_sync(kFull, v.x, off);
+    v.y += __shfl_down_sync(kFull, v.y, off);
+    v.z += __shfl_down_sync(kFull, v.z, off);
+    v.w += __shfl_down_sync(kFull, v.w, off);
+  }
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int4 s = make_int4(0, 0, 0, 0);
+  for (int w = 0; w < kWarps; ++w) {
+    s.x += red[w].x;
+    s.y += red[w].y;
+    s.z += red[w].z;
+    s.w += red[w].w;
+  }
+  __syncthreads();  // red is reused
+  return s;
+}
+
+// Exclusive prefix of (emit, cont) counts over the block's threads in
+// thread order; `total` gets the block's sum.
+template <int kWarps>
+__device__ int2 block_scan(int2 v, int2* red, int2* total) {
+  const int lane = threadIdx.x & 31;
+  int2 inc = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const int x = __shfl_up_sync(kFull, inc.x, off);
+    const int y = __shfl_up_sync(kFull, inc.y, off);
+    if (lane >= off) {
+      inc.x += x;
+      inc.y += y;
+    }
+  }
+  if (lane == 31) red[threadIdx.x >> 5] = inc;
+  __syncthreads();
+  int2 base = make_int2(0, 0);
+  int2 tot = make_int2(0, 0);
+  for (int w = 0; w < kWarps; ++w) {
+    const int2 s = red[w];
+    if (w < static_cast<int>(threadIdx.x >> 5)) {
+      base.x += s.x;
+      base.y += s.y;
+    }
+    tot.x += s.x;
+    tot.y += s.y;
+  }
+  __syncthreads();  // red is reused
+  *total = tot;
+  return make_int2(base.x + inc.x - v.x, base.y + inc.y - v.y);
+}
+
+// The child of a parent row: the row with `v` at column `col`.
+__device__ __forceinline__ void write_child(int* __restrict__ out,
+                                            const int* prow, int k1,
+                                            int col, int v) {
+  for (int c = 0; c < k1; ++c) out[c] = c == col ? v : prow[c];
 }
 
 }  // namespace frontier

@@ -64,32 +64,6 @@ constexpr int kThreads = kWarpsPerBlock * 32;
 constexpr int kTableCols = 5;  // begin, end, dst pointers; mf; k+1
 constexpr unsigned kFull = 0xffffffffu;
 
-// The prefix test of a row whose group of W lanes holds entries
-// 0..W-1 of the prefix in `first` (PAD past depth); entries from W on, if
-// the rows are wider than W, are read a group-width at a time.  Every lane
-// of the warp runs the same shuffles (the bounds are uniform).
-struct PrefixInLanes {
-  const int* prow;
-  int first;
-  int depth;
-  int sub;
-  int width;  // W
-  int k1max;
-  __device__ __forceinline__ bool operator()(int v, bool in_range) const {
-    bool dup = false;
-    for (int c0 = 0; c0 < k1max; c0 += width) {
-      const int own = c0 == 0 ? first
-                      : (c0 + sub <= depth ? prow[c0 + sub] : frontier::kPad);
-      const int n = k1max - c0 < width ? k1max - c0 : width;
-      for (int s = 0; s < n; ++s) {
-        const int x = __shfl_sync(kFull, own, s, width);
-        dup |= c0 + s <= depth && x == v;
-      }
-    }
-    return dup && in_range;
-  }
-};
-
 __global__ void __launch_bounds__(kThreads) frontier_fused_kernel(
     const int* __restrict__ paths, const int* __restrict__ rank,
     const int* __restrict__ tvec, const int* __restrict__ depthv,
@@ -138,7 +112,7 @@ __global__ void __launch_bounds__(kThreads) frontier_fused_kernel(
     }
   }
   const int depth = fr.valid ? fr.depth : -1;  // no prefix test otherwise
-  const PrefixInLanes on_prefix{
+  const frontier::PrefixInLanes on_prefix{
       fr.prow, sub <= depth && sub < k1max ? fr.prow[sub] : frontier::kPad,
       depth, sub, width, k1max};
 

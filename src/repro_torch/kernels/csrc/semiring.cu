@@ -19,7 +19,11 @@
 //
 // K4, min-plus SpMV, replaces `_minplus_kernel` (entry `minplus_spmv`):
 // out[v] = min(dist[v], inf, min_u adj[u, v] + dist[u]) with adj (n, n)
-// float32 holding 1.0 for an edge and `inf` otherwise.
+// float32 holding 1.0 for an edge and `inf` otherwise.  One launch runs k
+// such relaxations (k = 1 for `minplus_spmv`, k levels for `bfs_dense`,
+// the loop `repro` runs as one `fori_loop` program), forward or over
+// adj's transpose (out[v] = min(dist[v], inf, min_u adj[v, u] + dist[u]),
+// the reverse BFS, read along adj's rows with no transposed copy).
 //
 // What bounds them on the H100 at the DP's shapes (n <= 2048): for K4 and
 // for K3 at q = 1, bytes -- the n*n*4 bytes of the matrix are read once
@@ -45,18 +49,33 @@
 //    them), each block writes its slice's partial tile to a float32
 //    scratch, and a second kernel adds the slices in order.  Ragged n and
 //    q are masked inside the kernels (zero-filled copies, guarded stores).
-//  * K4 reduces each column over u: a block owns 32 columns, its 16 warps
-//    split the rows, each warp reads 32 consecutive floats of one row per
-//    step (coalesced along v), and a shared-memory pass takes the min of
-//    the 16 partial mins.  Min is exact, so the order does not matter.
+//  * K4 is one cooperative, persistent launch (every block resident, a
+//    grid barrier between levels, the levels in two buffers by parity).
+//    Forward, the columns are cut into tiles of 64 and the rows into as
+//    many slices (up to 16) as keep every tile on a block of its own with
+//    all blocks resident: at n = 2048, 12 slices of 171 rows, 384 tiles on
+//    three blocks an SM.  A tile's 16 row groups of 16 lanes read 16-byte
+//    loads along v, eight rows in flight a lane before the first fminf,
+//    and leave one partial min per column and slice.  The slices' partials are combined by a
+//    second pass after the barrier, folded into the next level: each tile
+//    rebuilds the distances of its own rows from the previous level and
+//    the partials, and the tiles of column 0 store them.  Transposed, a
+//    warp owns a row v and reads it with 16-byte loads (eight in flight a
+//    lane) against the distances staged in shared memory, so no partial
+//    crosses blocks.  Level 1 reads adj from device memory; at n <= 2048
+//    it is 16.8 MB, inside the 50 MB L2, where the later levels find it.
+//    Ragged n is masked inside the kernels (4-byte loads where rows are
+//    not 16-byte aligned).  Min is exact and each add is the same float
+//    operation in any order, so the result equals the plain version's.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
 
-namespace {
+namespace cg = cooperative_groups;
 
-constexpr int kMinplusWarps = 16;
+namespace {
 
 // K3, q = 1
 constexpr int kGemvWarps = 8;
@@ -311,25 +330,295 @@ __global__ void split_sum_kernel(const float* __restrict__ part,
   }
 }
 
-__global__ void minplus_spmv_kernel(const float* __restrict__ adj,
-                                    const float* __restrict__ dist,
-                                    float* __restrict__ out, int n,
-                                    float inf) {
-  __shared__ float part[kMinplusWarps][32];
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int v = blockIdx.x * 32 + tx;
-  float m = inf;
-  if (v < n) {
-    for (int u = ty; u < n; u += kMinplusWarps)
-      m = fminf(m, adj[static_cast<long long>(u) * n + v] + dist[u]);
+// ---------------------------------------------------------------------------
+// K4: k min-plus relaxations in one cooperative launch
+// ---------------------------------------------------------------------------
+
+constexpr int kMpThreads = 256;
+constexpr int kMpWarps = kMpThreads / 32;
+constexpr int kMpCols = 64;       // columns of a forward tile: 16 x float4
+constexpr int kMpRowGroups = kMpThreads / (kMpCols / 4);  // 16
+constexpr int kMpRowChunk = 256;  // rows whose distances a tile stages
+constexpr int kMpMaxSlices = 16;
+constexpr int kMpUnroll = 8;      // 16-byte loads in flight per lane
+constexpr int kMpChunk = 2048;    // distances a transposed block stages
+static_assert(kMpRowChunk == kMpThreads, "a thread stages one row");
+
+struct Minplus {
+  const float* adj;
+  const float* dist0;  // level 0; nullptr: 0 at src, inf elsewhere
+  float* out;
+  float* buf;          // 2 x n: the levels, by parity
+  float* part;         // 2 x slices x n: forward row slices' partial mins
+  int n;
+  int k;
+  int src;
+  float inf;
+  int slices;
+  int col_tiles;
+};
+
+__device__ __forceinline__ float level0(const Minplus& a, int u) {
+  return a.dist0 != nullptr ? __ldg(a.dist0 + u) : (u == a.src ? 0.0f
+                                                               : a.inf);
+}
+
+// min(d, the row slices' partial mins at u), every load issued before the
+// first fminf: a level's prologue is one L2 round trip, not `slices`.
+__device__ __forceinline__ float slices_min(float d, const float* part,
+                                           long long nn, long long u,
+                                           int slices) {
+  float x[kMpMaxSlices];
+#pragma unroll
+  for (int i = 0; i < kMpMaxSlices; ++i)
+    x[i] = i < slices ? __ldcg(part + i * nn + u) : d;
+#pragma unroll
+  for (int i = 0; i < kMpMaxSlices; ++i) d = fminf(d, x[i]);
+  return d;
+}
+
+// Four adjacent entries of a row from column `col`; entries past n (and,
+// for the scalar form, each one apart) read as inf.
+template <bool kVec>
+__device__ __forceinline__ float4 load4(const float* row, int col, int n,
+                                        float inf) {
+  if (kVec)
+    return col < n ? __ldg(reinterpret_cast<const float4*>(row + col))
+                   : make_float4(inf, inf, inf, inf);
+  return make_float4(col < n ? __ldg(row + col) : inf,
+                     col + 1 < n ? __ldg(row + col + 1) : inf,
+                     col + 2 < n ? __ldg(row + col + 2) : inf,
+                     col + 3 < n ? __ldg(row + col + 3) : inf);
+}
+
+__device__ __forceinline__ float4 min4(float4 m, float4 a, float4 d) {
+  return make_float4(fminf(m.x, a.x + d.x), fminf(m.y, a.y + d.y),
+                     fminf(m.z, a.z + d.z), fminf(m.w, a.w + d.w));
+}
+
+// Forward: out[v] = min(dist[v], inf, min_u adj[u, v] + dist[u]).  Tile
+// (c, s) takes kMpCols columns from c * kMpCols over the rows of slice s
+// and stores its partial min in part.  M_j, the distances after j
+// relaxations, are never stored whole at level j: at level j + 1 each
+// tile rebuilds M_j of its rows from M_{j-1} (buf) and the partials of
+// level j, and the tiles of column 0 store it into buf for the level
+// after.  One grid barrier a level.
+template <bool kVec>
+__global__ void __launch_bounds__(kMpThreads) minplus_forward_kernel(
+    Minplus a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ float sd[kMpRowChunk];
+  __shared__ float4 red[kMpRowGroups][kMpCols / 4];
+  const int n = a.n;
+  const int tx = threadIdx.x % (kMpCols / 4);
+  const int ty = threadIdx.x / (kMpCols / 4);
+  const int rows_per_slice = (n + a.slices - 1) / a.slices;
+  const int tiles = a.slices * a.col_tiles;
+  const long long nn = n;
+
+  for (int j = 1; j <= a.k; ++j) {
+    const float* prev = a.buf + ((j - 2) & 1) * nn;      // M_{j-2}
+    const float* ppart = a.part + ((j - 1) & 1) * nn * a.slices;
+    float* keep = a.buf + ((j - 1) & 1) * nn;            // M_{j-1}
+    float* mine = a.part + (j & 1) * nn * a.slices;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int c = tile % a.col_tiles;
+      const int s = tile / a.col_tiles;
+      const int r0 = s * rows_per_slice;
+      const int r1 = r0 + rows_per_slice < n ? r0 + rows_per_slice : n;
+      const int col = c * kMpCols + 4 * tx;
+      float4 m = make_float4(a.inf, a.inf, a.inf, a.inf);
+      for (int rc = r0; rc < r1; rc += kMpRowChunk) {
+        const int re = rc + kMpRowChunk < r1 ? rc + kMpRowChunk : r1;
+        __syncthreads();  // the previous chunk's readers are done with sd
+        const int u = rc + threadIdx.x;
+        if (u < re) {
+          const float d =
+              j == 1 ? level0(a, u)
+                     : slices_min(__ldcg(prev + u), ppart, nn, u, a.slices);
+          sd[threadIdx.x] = d;
+          if (c == 0) keep[u] = d;
+        }
+        __syncthreads();
+        for (int u0 = rc + ty; u0 < re; u0 += kMpRowGroups * kMpUnroll) {
+          float4 av[kMpUnroll];
+#pragma unroll
+          for (int i = 0; i < kMpUnroll; ++i) {
+            const int uu = u0 + kMpRowGroups * i;
+            av[i] = uu < re ? load4<kVec>(a.adj + uu * nn, col, n, a.inf)
+                            : make_float4(a.inf, a.inf, a.inf, a.inf);
+          }
+#pragma unroll
+          for (int i = 0; i < kMpUnroll; ++i) {
+            const int uu = u0 + kMpRowGroups * i;
+            if (uu < re) {
+              const float d = sd[uu - rc];
+              m = min4(m, av[i], make_float4(d, d, d, d));
+            }
+          }
+        }
+      }
+      red[ty][tx] = m;
+      __syncthreads();
+      if (threadIdx.x < kMpCols) {
+        const int v = c * kMpCols + threadIdx.x;
+        const float* r = reinterpret_cast<const float*>(&red[0][0]);
+        float p = a.inf;
+        for (int g = 0; g < kMpRowGroups; ++g)
+          p = fminf(p, r[g * kMpCols + threadIdx.x]);
+        if (v < n) mine[static_cast<long long>(s) * nn + v] = p;
+      }
+      __syncthreads();  // red is reused
+    }
+    grid.sync();
   }
-  part[ty][tx] = m;
-  __syncthreads();
-  if (ty == 0 && v < n) {
-    for (int i = 1; i < kMinplusWarps; ++i) m = fminf(m, part[i][tx]);
-    out[v] = fminf(dist[v], m);
+
+  // M_k = min(M_{k-1}, the partials of level k)
+  const long long stride = static_cast<long long>(gridDim.x) * kMpThreads;
+  for (long long v = static_cast<long long>(blockIdx.x) * kMpThreads
+                     + threadIdx.x;
+       v < n; v += stride) {
+    a.out[v] = a.k == 0
+                   ? level0(a, static_cast<int>(v))
+                   : slices_min(__ldcg(a.buf + ((a.k - 1) & 1) * nn + v),
+                                a.part + (a.k & 1) * nn * a.slices, nn, v,
+                                a.slices);
   }
+}
+
+// Transposed: out[v] = min(dist[v], inf, min_u adj[v, u] + dist[u]), the
+// relaxation over adj's transpose read along adj's rows: a warp per row v,
+// so no tile needs another's partial.  Level j reads M_{j-1} (staged in
+// shared memory) and writes M_j (buf, the output at level k).
+template <bool kVec>
+__global__ void __launch_bounds__(kMpThreads) minplus_transposed_kernel(
+    Minplus a) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ __align__(16) float sd[kMpChunk];
+  const int n = a.n;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long nn = n;
+  const int tiles = (n + kMpWarps - 1) / kMpWarps;
+  const bool one_chunk = n <= kMpChunk;
+
+  if (a.k == 0) {
+    for (int v = blockIdx.x * kMpThreads + threadIdx.x; v < n;
+         v += gridDim.x * kMpThreads)
+      a.out[v] = level0(a, v);
+    return;
+  }
+  for (int j = 1; j <= a.k; ++j) {
+    const float* prev = a.buf + ((j - 1) & 1) * nn;
+    float* next = j == a.k ? a.out : a.buf + (j & 1) * nn;
+    auto dist = [&](int u) {
+      return j == 1 ? level0(a, u) : __ldcg(prev + u);
+    };
+    auto stage = [&](int c0) {  // all loads in flight, then the stores
+      __syncthreads();
+      const int len = n - c0 < kMpChunk ? n - c0 : kMpChunk;
+      float x[kMpChunk / kMpThreads];
+#pragma unroll
+      for (int r = 0; r < kMpChunk / kMpThreads; ++r) {
+        const int i = threadIdx.x + r * kMpThreads;
+        x[r] = i < len ? dist(c0 + i) : 0.0f;
+      }
+#pragma unroll
+      for (int r = 0; r < kMpChunk / kMpThreads; ++r) {
+        const int i = threadIdx.x + r * kMpThreads;
+        if (i < len) sd[i] = x[r];
+      }
+      __syncthreads();
+    };
+    if (one_chunk) stage(0);
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int v = tile * kMpWarps + warp;
+      const float* row = a.adj + (v < n ? v : 0) * nn;
+      float m = a.inf;
+      for (int c0 = 0; c0 < n; c0 += kMpChunk) {
+        if (!one_chunk) stage(c0);
+        const int len = n - c0 < kMpChunk ? n - c0 : kMpChunk;
+        for (int e0 = 0; e0 < len; e0 += 4 * 32 * kMpUnroll) {
+          float4 av[kMpUnroll];
+#pragma unroll
+          for (int i = 0; i < kMpUnroll; ++i) {
+            const int e = e0 + 4 * (lane + 32 * i);
+            av[i] = v < n && e < len ? load4<kVec>(row + c0, e, len, a.inf)
+                                     : make_float4(a.inf, a.inf, a.inf,
+                                                   a.inf);
+          }
+#pragma unroll
+          for (int i = 0; i < kMpUnroll; ++i) {
+            const int e = e0 + 4 * (lane + 32 * i);
+            if (e < len) {
+              float4 d;
+              if (kVec) {
+                d = *reinterpret_cast<const float4*>(sd + e);
+              } else {
+                d.x = sd[e];
+                d.y = e + 1 < len ? sd[e + 1] : a.inf;
+                d.z = e + 2 < len ? sd[e + 2] : a.inf;
+                d.w = e + 3 < len ? sd[e + 3] : a.inf;
+              }
+              const float4 r = min4(make_float4(m, m, m, m), av[i], d);
+              m = fminf(fminf(r.x, r.y), fminf(r.z, r.w));
+            }
+          }
+        }
+      }
+      for (int off = 16; off > 0; off >>= 1)
+        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0 && v < n)
+        next[v] = fminf(one_chunk ? sd[v] : dist(v), m);
+    }
+    if (j < a.k) grid.sync();  // the last level's output is read by no one
+  }
+}
+
+// The SM count of the current device, read once per device.
+int sm_count(int* dev) {
+  static int sms[64] = {};
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  if (*dev < 0 || *dev >= 64) return -static_cast<int>(cudaErrorInvalidDevice);
+  if (sms[*dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[*dev], cudaDevAttrMultiProcessorCount,
+                                 *dev);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+  }
+  return sms[*dev];
+}
+
+// Blocks of one of the four kernels (`which` indexes them) that the card
+// holds at once, read once per device; a negative cudaError_t on failure.
+int resident(void (*kernel)(Minplus), int which) {
+  static int per_sm[4][64] = {};
+  int dev = 0;
+  const int sms = sm_count(&dev);
+  if (sms <= 0) return sms;
+  if (per_sm[which][dev] == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm[which][dev], kernel, kMpThreads, 0);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    if (per_sm[which][dev] < 1)
+      return -static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  return per_sm[which][dev] * sms;
+}
+
+// Launch one of the four kernels on as many blocks as `tiles`, but no
+// more than the card holds at once, as a cooperative launch needs.
+int minplus_run(void (*kernel)(Minplus), int which, Minplus a, int tiles,
+                cudaStream_t stream) {
+  const int most = resident(kernel, which);
+  if (most <= 0) return -most;
+  const int grid = tiles < 1 ? 1 : (tiles < most ? tiles : most);
+  void* args[] = {&a};
+  const cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(kernel), dim3(grid), dim3(kMpThreads), args, 0,
+      stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -388,12 +677,36 @@ extern "C" int counting_spmm_launch(const float* a, const float* x,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int minplus_spmv_launch(const float* adj, const float* dist,
-                                   float* out, int n, float inf,
-                                   cudaStream_t stream) {
+// K4: `k` min-plus relaxations of `dist0` (nullptr: 0 at `src` and inf
+// elsewhere) over adj (n, n), in one cooperative launch; `transposed`
+// relaxes over adj's transpose.  `scratch` holds (2 + 2 * 16) * n floats.
+// k = 1 is one relaxation (`minplus_spmv`), k levels a bounded BFS
+// (`bfs_dense`).
+extern "C" int minplus_launch(const float* adj, const float* dist0, int src,
+                              float* out, float* scratch, int n, int k,
+                              float inf, int transposed, cudaStream_t stream) {
   if (n <= 0) return 0;
-  const dim3 block(32, kMinplusWarps);
-  minplus_spmv_kernel<<<(n + 31) / 32, block, 0, stream>>>(adj, dist, out,
-                                                           n, inf);
-  return static_cast<int>(cudaGetLastError());
+  if (k < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = n % 4 == 0 &&
+                   reinterpret_cast<unsigned long long>(adj) % 16 == 0;
+  Minplus a{adj, dist0, out, scratch, scratch + 2LL * n, n, k, src, inf,
+            1, 1};
+  if (transposed) {
+    const int tiles = (n + kMpWarps - 1) / kMpWarps;
+    return vec ? minplus_run(minplus_transposed_kernel<true>, 0, a, tiles,
+                             stream)
+               : minplus_run(minplus_transposed_kernel<false>, 1, a, tiles,
+                             stream);
+  }
+  // as many row slices as keep every tile on a block of its own
+  void (*kernel)(Minplus) =
+      vec ? minplus_forward_kernel<true> : minplus_forward_kernel<false>;
+  const int which = vec ? 2 : 3;
+  const int most = resident(kernel, which);
+  if (most <= 0) return -most;
+  a.col_tiles = (n + kMpCols - 1) / kMpCols;
+  a.slices = most / a.col_tiles;
+  a.slices = a.slices < 1 ? 1
+             : (a.slices > kMpMaxSlices ? kMpMaxSlices : a.slices);
+  return minplus_run(kernel, which, a, a.slices * a.col_tiles, stream);
 }

@@ -1,4 +1,4 @@
-"""K1 and K5: the IDX-DFS frontier masks, single-query and fused, as CUDA
+"""K1 and K5: the IDX-DFS frontier hop, single-query and fused, as CUDA
 kernels and their plain versions.
 
 One hop of Algorithm 4 over a fixed-width ``(C, k+1)`` int32 chunk of
@@ -25,7 +25,18 @@ Layout (the JAX package's, so both can be held against each other):
 
 ``frontier_masks`` launches the kernel for CUDA tensors and runs
 ``frontier_masks_plain`` for CPU tensors; nothing routes a CUDA tensor
-to the plain version.  ``launches`` counts kernel launches.
+to the plain version.
+
+``frontier_hop`` is K1's hop entry: the same per-row work with the
+compaction in the kernel, so the (C, max_deg) masks never reach device
+memory.  It returns the children in the flat row-major order of a
+prefix-sum compaction (``compact`` + ``children``), ``emit_rows`` and
+``cont_rows`` (C·max_deg, k+1) int32 with the first ``n_emit`` /
+``n_cont`` rows defined, and ``head`` (8,) int32 ``[edges, edges,
+invalid, 0, n_emit, n_cont, 0, 0]`` for the host to read in one copy.
+Its plain version, ``frontier_hop_plain``, is the masks' plain version
+and that compaction.  ``launches`` counts every launch of K1 (either
+entry), ``hop_launches`` those of the hop entry.
 
 K5, ``frontier_fused_masks``, is K1 for ``m`` queries in one launch
 (``repro``'s ``_frontier_fused_kernel``; source ``csrc/frontier_fused.cu``):
@@ -55,7 +66,13 @@ PAD = -1
 
 # kernel launches since process start (chip_smoke.py resets and reads them)
 launches: int = 0
+hop_launches: int = 0
 fused_launches: int = 0
+
+# int32 slots of the hop's head, and the block totals its scratch holds
+# (kHead and kMaxGrid in csrc/frontier.cu)
+HOP_HEAD = 8
+HOP_MAX_GRID = 1024
 
 
 def frontier_masks_plain(paths: torch.Tensor, begin: torch.Tensor,
@@ -97,6 +114,62 @@ def frontier_masks_plain(paths: torch.Tensor, begin: torch.Tensor,
             emit.to(torch.int32), cont.to(torch.int32), counters)
 
 
+def compact(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Positions of the set entries of a flat mask, in order, padded with
+    0 to the mask's length (``jnp.nonzero(size=cap, fill_value=0)``), and
+    their count as a 0-d tensor.  A prefix sum ranks the set entries and
+    a scatter places them; unset entries land in a scratch tail."""
+    cap = mask.shape[0]
+    slots = torch.arange(cap, device=mask.device)
+    rank = torch.cumsum(mask, dim=0) - 1
+    dest = torch.where(mask, rank, cap + slots)
+    out = torch.zeros(2 * cap, dtype=torch.int64, device=mask.device)
+    out[dest] = slots
+    return out[:cap], mask.sum()
+
+
+def children(paths: torch.Tensor, vflat: torch.Tensor, idxs: torch.Tensor,
+             depth_rows: torch.Tensor, max_deg: int) -> torch.Tensor:
+    """Child rows of the candidates at flat positions ``idxs``: the parent
+    row with the candidate written at column depth+1, where ``depth_rows``
+    holds each parent row's depth (a fused launch mixes members whose
+    chunks sit at different depths)."""
+    parents = idxs // max_deg
+    rows = paths.index_select(0, parents)
+    col = torch.arange(paths.shape[1], device=paths.device)
+    dsel = depth_rows.index_select(0, parents)
+    return torch.where(col[None, :] == dsel[:, None] + 1,
+                       vflat.index_select(0, idxs)[:, None], rows)
+
+
+def frontier_hop_plain(paths: torch.Tensor, begin: torch.Tensor,
+                       end: torch.Tensor, dst: torch.Tensor,
+                       meta: torch.Tensor, *, max_deg: int,
+                       want_cont: bool = True
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hop in plain PyTorch (any device): ``frontier_masks_plain``,
+    then ``compact`` and ``children`` over the flat masks, as ``repro``'s
+    ``ops._frontier_expand_jit``.  Returns ``(emit_rows, cont_rows,
+    head)``; with ``want_cont=False`` ``cont_rows`` has no rows and
+    n_cont is 0."""
+    C, k1 = paths.shape
+    vnew, emit, cont, counters = frontier_masks_plain(
+        paths, begin, end, dst, meta, max_deg=max_deg)
+    vflat = vnew.view(-1)
+    depth_rows = meta[0].long().expand(C)
+    eidx, n_emit = compact(emit.view(-1) != 0)
+    emit_rows = children(paths, vflat, eidx, depth_rows, max_deg)
+    if want_cont:
+        cidx, n_cont = compact(cont.view(-1) != 0)
+        cont_rows = children(paths, vflat, cidx, depth_rows, max_deg)
+    else:
+        cont_rows = paths[:0]
+        n_cont = torch.zeros((), dtype=torch.int64, device=paths.device)
+    head = torch.cat([counters, torch.stack([n_emit, n_cont]).to(
+        torch.int32), counters.new_zeros(2)])
+    return emit_rows, cont_rows, head
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("frontier")
     fn = lib.frontier_masks_launch
@@ -104,6 +177,10 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        hop = lib.frontier_hop_launch
+        hop.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 \
+            + [ctypes.c_void_p]
+        hop.restype = ctypes.c_int
     return lib
 
 
@@ -136,8 +213,9 @@ def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
     """One frontier hop: ``(vnew, emit, cont, counters)`` for a chunk.
 
     CUDA tensors launch the kernel of ``csrc/frontier.cu`` on the current
-    stream (and raise if the launch fails); CPU tensors take
-    ``frontier_masks_plain``.
+    stream (and raise if the launch fails), which zeroes the counters
+    itself; the three masks and the counters are views of one allocation.
+    CPU tensors take ``frontier_masks_plain``.
     """
     global launches
     _check_args(paths, begin, end, dst, meta, max_deg)
@@ -145,10 +223,10 @@ def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
         return frontier_masks_plain(paths, begin, end, dst, meta,
                                     max_deg=max_deg)
     C, k1 = paths.shape
-    vnew = torch.empty((C, max_deg), dtype=torch.int32, device=paths.device)
-    emit = torch.empty_like(vnew)
-    cont = torch.empty_like(vnew)
-    counters = torch.zeros(4, dtype=torch.int32, device=paths.device)
+    slots = C * max_deg
+    buf = torch.empty(3 * slots + 4, dtype=torch.int32, device=paths.device)
+    vnew, emit, cont = buf[:3 * slots].view(3, C, max_deg)
+    counters = buf[3 * slots:]
     status = _lib().frontier_masks_launch(
         paths.data_ptr(), begin.data_ptr(), end.data_ptr(), dst.data_ptr(),
         meta.data_ptr(), vnew.data_ptr(), emit.data_ptr(), cont.data_ptr(),
@@ -157,6 +235,45 @@ def frontier_masks(paths: torch.Tensor, begin: torch.Tensor,
     _build.check(status, "frontier_masks")
     launches += 1
     return vnew, emit, cont, counters
+
+
+def frontier_hop(paths: torch.Tensor, begin: torch.Tensor,
+                 end: torch.Tensor, dst: torch.Tensor, meta: torch.Tensor,
+                 *, max_deg: int, want_cont: bool = True
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One frontier hop with its compaction: ``(emit_rows, cont_rows,
+    head)`` for a chunk (see the module docstring).
+
+    CUDA tensors launch the hop of ``csrc/frontier.cu`` (a count and a
+    write launch) on the current stream and raise if it fails; the head,
+    the kernel's scratch and both row blocks are views of one allocation,
+    and rows past ``n_emit`` / ``n_cont`` are left unwritten.  CPU tensors
+    take ``frontier_hop_plain``.
+    """
+    global launches, hop_launches
+    _check_args(paths, begin, end, dst, meta, max_deg)
+    if not paths.is_cuda:
+        return frontier_hop_plain(paths, begin, end, dst, meta,
+                                  max_deg=max_deg, want_cont=want_cont)
+    C, k1 = paths.shape
+    cap = C * max_deg
+    ccap = cap if want_cont else 0
+    scratch = 4 * HOP_MAX_GRID
+    buf = torch.empty(HOP_HEAD + scratch + (cap + ccap) * k1,
+                      dtype=torch.int32, device=paths.device)
+    head = buf[:HOP_HEAD]
+    rows = buf[HOP_HEAD + scratch:]
+    emit_rows = rows[:cap * k1].view(cap, k1)
+    cont_rows = rows[cap * k1:].view(ccap, k1)
+    status = _lib().frontier_hop_launch(
+        paths.data_ptr(), begin.data_ptr(), end.data_ptr(), dst.data_ptr(),
+        meta.data_ptr(), head.data_ptr(), buf[HOP_HEAD:].data_ptr(),
+        emit_rows.data_ptr(), cont_rows.data_ptr(), C, k1, max_deg,
+        dst.shape[0], int(want_cont), _build.stream(paths.device))
+    _build.check(status, "frontier_hop")
+    launches += 1
+    hop_launches += 1
+    return emit_rows, cont_rows, head
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
 """The device paths around the kernels: frontier compaction, the resident
 work deque (K2) and the dense BFS (DESIGN.md §9).
 
-* ``frontier_expand`` — one IDX-DFS hop for a host chunk: pads the rows
-  to a power of two, runs the frontier masks (K1) and compacts the emit
-  and continue candidates into child rows in row-major order.  The
-  compaction is a prefix sum over the flat mask and a scatter
-  (no atomics choose positions), so emission order, and with it every
-  ``first_n`` prefix, is the host driver's.
+* ``frontier_expand`` — one IDX-DFS hop for a host chunk: the emit and
+  continue candidates compacted into child rows in row-major order by a
+  prefix sum (no atomics choose positions), so emission order, and with
+  it every ``first_n`` prefix, is the host driver's.  On the card K1's
+  hop entry does the masks and the compaction in the kernel, on one
+  pinned copy in; on the CPU the rows are padded to a power of two and
+  take the plain masks and compaction.  ``frontier_expand_readback``
+  brings the results to the host in one small copy of the counts and
+  one copy per block of rows.
 * ``frontier_expand_fused`` — one fused hop for chunks of many queries
   (K5), the counterpart of ``repro``'s ``ops.frontier_expand_fused``:
   the same padding and flat compaction, with per-row depths, so each
@@ -25,7 +28,9 @@ work deque (K2) and the dense BFS (DESIGN.md §9).
   buffer of a query; ``repro`` copies it).  The geometry, the pop
   sequence and the regions the host reads back (``DequeConfig``) equal
   ``repro``'s; the plain version also equals it array for array.
-* ``bfs_dense`` — k min-plus relaxations (K4) from one source.
+* ``bfs_dense`` — k min-plus relaxations (K4) from one source, forward
+  or over the transpose; one launch on the card (defined beside K4 in
+  ``semiring_spmm`` and re-exported here, ``repro``'s place for it).
 """
 from __future__ import annotations
 
@@ -37,10 +42,10 @@ import numpy as np
 import torch
 
 from . import _build
-from .frontier_expand import (PAD, frontier_fused_masks,
-                              frontier_fused_masks_table, frontier_masks,
+from .frontier_expand import (PAD, children, compact, frontier_fused_masks,
+                              frontier_fused_masks_table, frontier_hop,
                               frontier_masks_plain, fused_member_table)
-from .semiring_spmm import minplus_spmv
+from .semiring_spmm import bfs_dense  # noqa: F401  (re-exported)
 
 # launches of the deque-round kernel since process start (one per round
 # on a CUDA device, as ``repro`` counts one dispatch per round)
@@ -67,34 +72,6 @@ def _next_pow2(x: int) -> int:
     return 1 << max(x - 1, 0).bit_length() if x > 1 else 1
 
 
-def _compact(mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Positions of the set entries of a flat mask, in order, padded with
-    0 to the mask's length (``jnp.nonzero(size=cap, fill_value=0)``), and
-    their count as a 0-d tensor.  A prefix sum ranks the set entries and
-    a scatter places them; unset entries land in a scratch tail."""
-    cap = mask.shape[0]
-    slots = torch.arange(cap, device=mask.device)
-    rank = torch.cumsum(mask, dim=0) - 1
-    dest = torch.where(mask, rank, cap + slots)
-    out = torch.zeros(2 * cap, dtype=torch.int64, device=mask.device)
-    out[dest] = slots
-    return out[:cap], mask.sum()
-
-
-def _children(paths: torch.Tensor, vflat: torch.Tensor, idxs: torch.Tensor,
-              depth_rows: torch.Tensor, max_deg: int) -> torch.Tensor:
-    """Child rows of the candidates at flat positions ``idxs``: the parent
-    row with the candidate written at column depth+1, where ``depth_rows``
-    holds each parent row's depth (a fused launch mixes members whose
-    chunks sit at different depths)."""
-    parents = idxs // max_deg
-    rows = paths.index_select(0, parents)
-    col = torch.arange(paths.shape[1], device=paths.device)
-    dsel = depth_rows.index_select(0, parents)
-    return torch.where(col[None, :] == dsel[:, None] + 1,
-                       vflat.index_select(0, idxs)[:, None], rows)
-
-
 def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
                     end: torch.Tensor, dst: torch.Tensor, *, depth: int,
                     t: int, max_deg: int, want_cont: bool = True
@@ -109,9 +86,47 @@ def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
     ``ops.frontier_expand`` does: the first ``n_emit`` rows of
     ``emit_rows`` are the completed paths in host emission order, the
     first ``n_cont`` rows of ``cont_rows`` the surviving partials, and
-    ``counters`` the (4,) int32 Fig.-6 deltas.  ``want_cont=False`` (the
-    last hop) skips the continue compaction; counters are unaffected.
+    ``counters`` the (4,) int32 Fig.-6 deltas; ``n_emit``, ``n_cont`` and
+    ``counters`` are views of the hop's ``head``.  ``want_cont=False``
+    (the last hop) skips the continue rows; counters are unaffected.
     """
+    emit_rows, cont_rows, head = _expand(paths, begin, end, dst,
+                                         depth=depth, t=t, max_deg=max_deg,
+                                         want_cont=want_cont)
+    return emit_rows, cont_rows, head[4], head[5], head[:4]
+
+
+def frontier_expand_readback(paths: np.ndarray, begin: torch.Tensor,
+                             end: torch.Tensor, dst: torch.Tensor, *,
+                             depth: int, t: int, max_deg: int,
+                             want_cont: bool = True
+                             ) -> tuple[Optional[np.ndarray],
+                                        Optional[np.ndarray], list]:
+    """``frontier_expand`` with its results on the host, as the host-looped
+    driver reads them: ``(emit_rows, cont_rows, [edges, partials,
+    invalid])``, each row block a numpy array of exactly its rows or None
+    when empty.  The head comes back in one small copy, then each block
+    of rows that has any."""
+    emit_rows, cont_rows, head = _expand(paths, begin, end, dst,
+                                         depth=depth, t=t, max_deg=max_deg,
+                                         want_cont=want_cont)
+    edges, partials, invalid, _, ne, nc = head[:6].tolist()
+    emit = emit_rows[:ne].cpu().numpy() if ne else None
+    cont = cont_rows[:nc].cpu().numpy() if want_cont and nc else None
+    return emit, cont, [edges, partials, invalid]
+
+
+def _expand(paths: np.ndarray, begin: torch.Tensor, end: torch.Tensor,
+            dst: torch.Tensor, *, depth: int, t: int, max_deg: int,
+            want_cont: bool
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The hop of ``frontier_expand``: ``(emit_rows, cont_rows, head)``.
+
+    On the card the chunk and ``[depth, t]`` go to the device in one copy
+    from pinned memory that does not sync the stream, and K1's hop entry
+    compacts in the kernel.  On the CPU the chunk is padded with PAD rows
+    to a power of two, as ``repro`` buckets it, and takes the plain hop
+    (the masks, then the flat compaction)."""
     global _dispatch_count
     paths = np.asarray(paths, dtype=np.int32)
     rows, k1 = paths.shape
@@ -119,27 +134,26 @@ def frontier_expand(paths: np.ndarray, begin: torch.Tensor,
         raise ValueError(f"depth {depth} leaves no column for the hop")
     if max_deg < 1:
         raise ValueError("zero-fanout chunks never reach the device")
-    C = _next_pow2(max(rows, 8))
-    padded = np.full((C, k1), PAD, dtype=np.int32)
-    padded[:rows] = paths
     dev = begin.device
-    p = torch.from_numpy(padded).to(dev)
-    meta = torch.tensor([depth, t], dtype=torch.int32).to(dev)
     md = _next_pow2(max_deg)
-    vnew, emit, cont, counters = frontier_masks(p, begin, end, dst, meta,
-                                                max_deg=md)
-    vflat = vnew.view(-1)
-    eidx, n_emit = _compact(emit.view(-1) != 0)
-    depth_rows = meta[0].expand(C)
-    emit_rows = _children(p, vflat, eidx, depth_rows, md)
-    if want_cont:
-        cidx, n_cont = _compact(cont.view(-1) != 0)
-        cont_rows = _children(p, vflat, cidx, depth_rows, md)
+    if dev.type == "cuda":
+        # the pinned block is not reused before the copy is done
+        host = torch.empty(2 + rows * k1, dtype=torch.int32, pin_memory=True)
+        buf = host.numpy()
+        buf[:2] = (depth, t)
+        buf[2:] = paths.reshape(-1)
+        d = host.to(dev, non_blocking=True)
+        p, meta = d[2:].view(rows, k1), d[:2]
     else:
-        cont_rows = p[:0]
-        n_cont = torch.zeros((), dtype=torch.int64, device=dev)
+        C = _next_pow2(max(rows, 8))
+        padded = np.full((C, k1), PAD, dtype=np.int32)
+        padded[:rows] = paths
+        p = torch.from_numpy(padded)
+        meta = torch.tensor([depth, t], dtype=torch.int32)
+    out = frontier_hop(p, begin, end, dst, meta, max_deg=md,
+                       want_cont=want_cont)
     _dispatch_count += 1
-    return emit_rows, cont_rows, n_emit, n_cont, counters
+    return out
 
 
 def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
@@ -229,26 +243,14 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
         return out.scatter_add_(0, rankflat, flat.to(torch.int32))
 
     flat_emit = emit.view(-1) != 0
-    eidx, _ = _compact(flat_emit)
-    emit_rows = _children(p, vflat, eidx, depth_rows, md)
+    eidx, _ = compact(flat_emit)
+    emit_rows = children(p, vflat, eidx, depth_rows, md)
     flat_cont = (cont.view(-1) != 0) & wc.index_select(0, rankflat)
-    cidx, _ = _compact(flat_cont)
-    cont_rows = _children(p, vflat, cidx, depth_rows, md)
+    cidx, _ = compact(flat_cont)
+    cont_rows = children(p, vflat, cidx, depth_rows, md)
     _dispatch_count += 1
     return (emit_rows, cont_rows, per_member(flat_emit),
             per_member(flat_cont), counters)
-
-
-def bfs_dense(adj: torch.Tensor, src: int, k: int, *,
-              inf: float = 1e9) -> torch.Tensor:
-    """Bounded BFS over a dense float32 adjacency: k min-plus relaxations
-    (K4) from ``src``; unreachable vertices keep ``inf``."""
-    dist = torch.full((adj.shape[0],), inf, dtype=torch.float32,
-                      device=adj.device)
-    dist[src] = 0.0
-    for _ in range(k):
-        dist = minplus_spmv(adj, dist, inf=inf)
-    return dist
 
 
 # ---------------------------------------------------------------------------
@@ -368,8 +370,8 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
 
         # completed paths: the compacted emit children land at n_emit
         flat_emit = emit.view(-1) != 0
-        eidx, ne_new = _compact(flat_emit)
-        echild = _children(paths, vflat, eidx, depth_rows, cfg.max_deg)
+        eidx, ne_new = compact(flat_emit)
+        echild = children(paths, vflat, eidx, depth_rows, cfg.max_deg)
         wpos = ne + slots
         emitbuf[wpos] = torch.where(active, echild, emitbuf[wpos])
         emitlen[wpos] = torch.where(active, (cdepth + 1).to(torch.int32),
@@ -389,8 +391,8 @@ def _deque_round(arena: torch.Tensor, meta_depth: torch.Tensor,
         dest = (s_top + n_cont - torch.minimum((piece + 1) * cs, n_cont)
                 + (crank - piece * cs))
         dest = torch.where(flat_cont, dest, arena_scratch)
-        children = _children(paths, vflat, slots, depth_rows, cfg.max_deg)
-        arena[dest] = torch.where(active, children, arena[dest])
+        child_rows = children(paths, vflat, slots, depth_rows, cfg.max_deg)
+        arena[dest] = torch.where(active, child_rows, arena[dest])
         slot = torch.where(pj < np_pieces, s_nc + np_pieces - 1 - pj,
                            meta_scratch)
         meta_depth[slot] = torch.where(active, (cdepth + 1).to(torch.int32),

@@ -4,8 +4,12 @@ The full-fledged estimator (Alg. 5) runs on a dense ``(n, n)`` index
 adjacency (DESIGN.md §9):
 
 * ``minplus_spmv`` (K4) — one bounded-BFS relaxation,
-  ``out[v] = min(dist[v], inf, min_u adj[u, v] + dist[u])``, looped k
-  times by ``ops.bfs_dense`` to give the DP's level masks;
+  ``out[v] = min(dist[v], inf, min_u adj[u, v] + dist[u])``, or with
+  ``transposed=True`` the relaxation over ``adj``'s transpose read along
+  ``adj``'s rows (the reverse BFS, with no transposed copy);
+* ``bfs_dense`` (K4) — k such relaxations from one source, the DP's
+  level masks (re-exported by ``ops``): on the card one launch for all k,
+  on the CPU a loop of plain relaxations;
 * ``counting_spmm`` (K3) — one DP level, ``out = A @ x`` over float32
   walk counts, exact while every partial sum stays below 2^24
   (``core.estimator.EXACT_COUNT_MAX``).
@@ -14,11 +18,14 @@ Counterparts of ``repro``'s Pallas kernels ``_minplus_kernel`` and
 ``_counting_kernel`` (``kernels/semiring_spmm.py``).  The CUDA source is
 ``csrc/semiring.cu``; it says what bounds each product on the card.
 CUDA tensors launch the kernels, CPU tensors take the ``*_plain``
-versions, and the two launch counters count kernel launches.
+versions.  ``counting_launches`` counts K3's launches and
+``minplus_launches`` every launch of K4's kernel, from either entry;
+``bfs_launches`` counts those of ``bfs_dense`` alone.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -26,14 +33,30 @@ from . import _build
 
 # kernel launches since process start (chip_smoke.py resets and reads them)
 minplus_launches: int = 0
+bfs_launches: int = 0
 counting_launches: int = 0
 
 
 def minplus_spmv_plain(adj: torch.Tensor, dist: torch.Tensor, *,
-                       inf: float) -> torch.Tensor:
-    """One min-plus relaxation in plain PyTorch (``ref.minplus_spmv_ref``)."""
+                       inf: float, transposed: bool = False) -> torch.Tensor:
+    """One min-plus relaxation in plain PyTorch (``ref.minplus_spmv_ref``),
+    over ``adj.T`` (a view) where ``transposed``."""
+    if transposed:
+        adj = adj.T
     cand = (adj + dist[:, None]).amin(dim=0)
     return torch.minimum(dist, torch.clamp(cand, max=inf))
+
+
+def bfs_dense_plain(adj: torch.Tensor, src: int, k: int, *,
+                    inf: float = 1e9, transposed: bool = False
+                    ) -> torch.Tensor:
+    """Bounded BFS in plain PyTorch: k plain relaxations from ``src``."""
+    dist = torch.full((adj.shape[0],), inf, dtype=torch.float32,
+                      device=adj.device)
+    dist[src] = 0.0
+    for _ in range(k):
+        dist = minplus_spmv_plain(adj, dist, inf=inf, transposed=transposed)
+    return dist
 
 
 def counting_spmm_plain(adj: torch.Tensor,
@@ -67,15 +90,38 @@ def counting_splits(n: int, q: int, sms: int) -> tuple[int, int]:
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("semiring")
-    if lib.minplus_spmv_launch.argtypes is None:
-        lib.minplus_spmv_launch.argtypes = (
-            [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_float,
-                                     ctypes.c_void_p])
-        lib.minplus_spmv_launch.restype = ctypes.c_int
+    if lib.minplus_launch.argtypes is None:
+        lib.minplus_launch.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_int,
+                                    ctypes.c_void_p])
+        lib.minplus_launch.restype = ctypes.c_int
         lib.counting_spmm_launch.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.counting_spmm_launch.restype = ctypes.c_int
     return lib
+
+
+# scratch of a K4 launch, in n-float rows: two level buffers and the
+# partial mins of up to 16 row slices by parity (csrc/semiring.cu)
+_MINPLUS_SCRATCH = 2 + 2 * 16
+
+
+def _minplus_cuda(adj: torch.Tensor, dist: Optional[torch.Tensor], src: int,
+                  k: int, inf: float, transposed: bool) -> torch.Tensor:
+    """One launch of K4: ``k`` relaxations of ``dist`` (None: 0 at ``src``,
+    ``inf`` elsewhere).  The output and the scratch are one allocation."""
+    global minplus_launches
+    n = adj.shape[0]
+    buf = torch.empty((_MINPLUS_SCRATCH + 1) * n, dtype=torch.float32,
+                      device=adj.device)
+    status = _lib().minplus_launch(
+        adj.data_ptr(), None if dist is None else dist.data_ptr(), src,
+        buf.data_ptr(), buf[n:].data_ptr(), n, k, inf, int(transposed),
+        _build.stream(adj.device))
+    _build.check(status, "minplus")
+    minplus_launches += 1
+    return buf[:n]
 
 
 def _check_f32(name: str, x: torch.Tensor, device: torch.device) -> None:
@@ -87,25 +133,45 @@ def _check_f32(name: str, x: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def minplus_spmv(adj: torch.Tensor, dist: torch.Tensor, *,
-                 inf: float) -> torch.Tensor:
-    """One bounded-BFS relaxation over a dense (n, n) float32 adjacency
-    (1.0 for an edge, ``inf`` otherwise); ``dist`` (n,) float32."""
-    global minplus_launches
+def _check_adj(adj: torch.Tensor) -> int:
     n = adj.shape[0]
-    if adj.shape != (n, n) or dist.shape != (n,):
-        raise ValueError(f"adj must be (n, n) and dist (n,), got "
-                         f"{tuple(adj.shape)} and {tuple(dist.shape)}")
+    if adj.dim() != 2 or adj.shape != (n, n):
+        raise ValueError(f"adj must be (n, n), got {tuple(adj.shape)}")
     _check_f32("adj", adj, adj.device)
+    return n
+
+
+def minplus_spmv(adj: torch.Tensor, dist: torch.Tensor, *, inf: float,
+                 transposed: bool = False) -> torch.Tensor:
+    """One bounded-BFS relaxation over a dense (n, n) float32 adjacency
+    (1.0 for an edge, ``inf`` otherwise), over its transpose where
+    ``transposed``; ``dist`` (n,) float32.  On the card, one launch of K4
+    with k = 1."""
+    n = _check_adj(adj)
+    if dist.shape != (n,):
+        raise ValueError(f"dist must be ({n},), got {tuple(dist.shape)}")
     _check_f32("dist", dist, adj.device)
     if not adj.is_cuda:
-        return minplus_spmv_plain(adj, dist, inf=inf)
-    out = torch.empty_like(dist)
-    status = _lib().minplus_spmv_launch(
-        adj.data_ptr(), dist.data_ptr(), out.data_ptr(), n, inf,
-        _build.stream(adj.device))
-    _build.check(status, "minplus_spmv")
-    minplus_launches += 1
+        return minplus_spmv_plain(adj, dist, inf=inf, transposed=transposed)
+    return _minplus_cuda(adj, dist, 0, 1, inf, transposed)
+
+
+def bfs_dense(adj: torch.Tensor, src: int, k: int, *, inf: float = 1e9,
+              transposed: bool = False) -> torch.Tensor:
+    """Bounded BFS over a dense (n, n) float32 adjacency (over its
+    transpose where ``transposed``): k min-plus relaxations from ``src``;
+    unreachable vertices keep ``inf``.  On the card one launch of K4 runs
+    all k levels; on the CPU ``bfs_dense_plain`` loops."""
+    global bfs_launches
+    n = _check_adj(adj)
+    if not -n <= src < n:
+        raise IndexError(f"src {src} out of range for {n} vertices")
+    if k < 0:
+        raise ValueError(f"k must be >= 0, got {k}")
+    if not adj.is_cuda:
+        return bfs_dense_plain(adj, src, k, inf=inf, transposed=transposed)
+    out = _minplus_cuda(adj, None, src % n, k, inf, transposed)
+    bfs_launches += 1
     return out
 
 

@@ -113,6 +113,14 @@ def test_cpu_tensors_take_the_plain_versions():
                        torch.full((4, 1), 4.0))
     assert torch.equal(sr.minplus_spmv(adj, torch.zeros(4), inf=1e9),
                        torch.zeros(4))
+    assert torch.equal(sr.minplus_spmv(adj, torch.zeros(4), inf=1e9,
+                                       transposed=True), torch.zeros(4))
+    assert sr.bfs_dense(adj, 0, 2, inf=1e9).tolist() == [0.0, 1.0, 1.0,
+                                                           1.0]
+    erows, crows, head = fe.frontier_hop(paths, begin, end, dst, meta,
+                                         max_deg=1)
+    assert head.tolist() == [1, 1, 0, 0, 1, 0, 0, 0]
+    assert erows[:1].tolist() == [[0, 2, -1]] and crows.shape == (1, 3)
     rank = torch.zeros(1, dtype=torch.int32)
     tv = torch.tensor([2], dtype=torch.int32)
     dv = torch.tensor([0], dtype=torch.int32)
@@ -125,9 +133,9 @@ def test_cpu_tensors_take_the_plain_versions():
     assert got[1].tolist() == [[1]] and got[3].tolist() == [[1, 1, 0, 0]]
     assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
     assert set(kernels.launch_counts()) == {
-        "frontier_masks", "frontier_fused_masks", "frontier_deque_round",
-        "counting_spmm", "minplus_spmv", "flash_attention",
-        "flash_attention_sm90", "decode_attention"}
+        "frontier_masks", "frontier_hop", "frontier_fused_masks",
+        "frontier_deque_round", "counting_spmm", "minplus_spmv", "bfs_dense",
+        "flash_attention", "flash_attention_sm90", "decode_attention"}
     assert _build._loaded == loaded        # nothing was built or loaded
     with pytest.raises(TypeError):
         fe.frontier_masks(paths.long(), begin, end, dst, meta, max_deg=1)

@@ -163,6 +163,205 @@ def test_cuda_minplus_equals_plain(cuda, n):
     assert torch.equal(got, want)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 2000, 2048])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_cuda_minplus_ragged_both_layouts(cuda, n, transposed):
+    """One relaxation at ragged n, forward and over the transpose (read
+    along adj's rows), against the plain relaxation on the CPU."""
+    rng = np.random.default_rng(3 * n + transposed)
+    inf = 1e9
+    adj = np.where(rng.random((n, n)) < 0.02, 1.0, inf).astype(np.float32)
+    dist = np.full(n, inf, np.float32)
+    dist[rng.choice(n, min(n, 5), replace=False)] = rng.integers(
+        0, 4, min(n, 5))
+    a, d = torch.from_numpy(adj), torch.from_numpy(dist)
+    before = sr.minplus_launches
+    got = sr.minplus_spmv(a.to(cuda), d.to(cuda), inf=inf,
+                          transposed=transposed)
+    assert sr.minplus_launches == before + 1
+    want = sr.minplus_spmv_plain(a, d, inf=inf, transposed=transposed)
+    assert torch.equal(got.cpu(), want)
+    if transposed:
+        assert torch.equal(want, sr.minplus_spmv_plain(a.T.contiguous(), d,
+                                                       inf=inf))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(1, 3), (33, 0), (33, 1), (300, 5),
+                                 (2000, 4), (2048, 8)])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_cuda_bfs_dense_one_launch(cuda, n, k, transposed):
+    """A whole bounded BFS is one launch of K4 and equals k plain
+    relaxations, level for level."""
+    rng = np.random.default_rng(n + k)
+    inf = 1e9
+    adj = torch.from_numpy(np.where(rng.random((n, n)) < 3.0 / n, 1.0, inf)
+                           .astype(np.float32))
+    src = int(rng.integers(0, n))
+    launches, bfs = sr.minplus_launches, sr.bfs_launches
+    got = ops.bfs_dense(adj.to(cuda), src, k, inf=inf,
+                        transposed=transposed)
+    torch.cuda.synchronize()
+    assert (sr.minplus_launches, sr.bfs_launches) == (launches + 1, bfs + 1)
+    want = torch.full((n,), inf)
+    want[src] = 0.0
+    for _ in range(k):
+        want = sr.minplus_spmv_plain(adj, want, inf=inf,
+                                     transposed=transposed)
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want, sr.bfs_dense_plain(adj, src, k, inf=inf,
+                                                  transposed=transposed))
+
+
+def _hop_inputs(dev, rows, max_deg, *, k=6, depth=3, n=300, seed=0):
+    """A chunk of ``rows`` rows over a synthetic index whose fan-out
+    reaches ``max_deg``: prefixes drawn from few vertices (so candidates
+    repeat them), rows of zero fan-out, PAD rows, a t that many candidates
+    hit.  Returns the host chunk, the index arrays on ``dev`` and the
+    kernel's arguments."""
+    rng = np.random.default_rng(seed + rows + 7 * max_deg)
+    deg = rng.integers(0, max_deg + 1, n)
+    deg[:2] = (max_deg, 0)
+    begin = np.concatenate([[0], np.cumsum(deg)[:-1]])
+    budget = np.minimum(deg[:, None],
+                        np.arange(k + 1)[None, :] * -(-max_deg // 2))
+    end = begin[:, None] + budget
+    dst = rng.integers(0, 24, max(int(deg.sum()), 1))
+    paths = np.full((rows, k + 1), PAD, np.int32)
+    paths[:, :depth + 1] = rng.integers(0, 24, (rows, depth + 1))
+    paths[:, depth] = rng.integers(0, n, rows)
+    paths[0, depth] = 0
+    paths[rng.random(rows) < 0.1] = PAD
+    arrays = [torch.from_numpy(x.astype(np.int32)).to(dev)
+              for x in (begin, end, dst)]
+    meta = torch.tensor([depth, 5], dtype=torch.int32).to(dev)
+    return paths, arrays, meta, depth, _next_pow2(max_deg)
+
+
+def _hop_equal(got, want):
+    """The hop's outputs against the plain hop's: the head, and the
+    defined rows of each block."""
+    ge, gc, gh = got
+    we, wc, wh = want
+    assert torch.equal(gh.cpu(), wh.cpu())
+    ne, nc = int(wh[4]), int(wh[5])
+    assert torch.equal(ge[:ne].cpu(), we[:ne].cpu())
+    assert torch.equal(gc[:nc].cpu(), wc[:nc].cpu())
+    return ne, nc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 1000, 3001])
+@pytest.mark.parametrize("max_deg", [1, 4, 32, 64])
+@pytest.mark.parametrize("want_cont", [True, False])
+def test_cuda_frontier_hop_and_masks_fanouts(cuda, rows, max_deg,
+                                             want_cont):
+    """K1's hop entry and masks entry against their plain versions at
+    rows that are not a multiple of a block's step and at every group
+    width (1 lane a row up to a warp a row, and wider rows)."""
+    paths, (b, e, d), meta, _depth, md = _hop_inputs(cuda, rows, max_deg)
+    p = torch.from_numpy(paths).to(cuda)
+    before = (fe.launches, fe.hop_launches)
+    got = fe.frontier_hop(p, b, e, d, meta, max_deg=md, want_cont=want_cont)
+    assert (fe.launches, fe.hop_launches) == (before[0] + 1, before[1] + 1)
+    want = fe.frontier_hop_plain(p, b, e, d, meta, max_deg=md,
+                                 want_cont=want_cont)
+    ne, nc = _hop_equal(got, want)
+    assert want_cont or nc == 0
+    if rows >= 1000:
+        assert ne + nc > 0
+    got_m = fe.frontier_masks(p, b, e, d, meta, max_deg=md)
+    want_m = fe.frontier_masks_plain(p, b, e, d, meta, max_deg=md)
+    for x, y in zip(got_m, want_m):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,s,t,k", CASES)
+@pytest.mark.parametrize("want_cont", [True, False])
+def test_cuda_frontier_hop_equals_plain(cuda, name, s, t, k, want_cont):
+    """The hop entry on the K1 test's indexes, padded and unpadded, and
+    ``ops.frontier_expand`` / ``frontier_expand_readback`` on the card
+    against the same calls on the CPU."""
+    g = random_graph_suite(0)[name]
+    idx = build_index(g, s, t, k, device=cuda)
+    cpu = build_index(g, s, t, k, device="cpu")
+    dev, hdev = idx.device_arrays(), cpu.device_arrays()
+    checked = 0
+    for depth in range(k - 1):
+        padded, max_deg = _chunk(idx, depth)
+        if padded is None:
+            break
+        meta = torch.tensor([depth, t], dtype=torch.int32).to(cuda)
+        rows = int((padded[:, 0] != PAD).sum())
+        for chunk in (padded, padded[:rows]):
+            p = torch.from_numpy(np.ascontiguousarray(chunk)).to(cuda)
+            got = fe.frontier_hop(p, dev.begin, dev.end, dev.dst, meta,
+                                  max_deg=max_deg, want_cont=want_cont)
+            want = fe.frontier_hop_plain(p, dev.begin, dev.end, dev.dst,
+                                         meta, max_deg=max_deg,
+                                         want_cont=want_cont)
+            _hop_equal(got, want)
+            kw = dict(depth=depth, t=t, max_deg=max_deg, want_cont=want_cont)
+            a = ops.frontier_expand(chunk, dev.begin, dev.end, dev.dst, **kw)
+            c = ops.frontier_expand(chunk, hdev.begin, hdev.end, hdev.dst,
+                                    **kw)
+            ne, nc = int(c[2]), int(c[3])
+            assert (int(a[2]), int(a[3])) == (ne, nc)
+            assert torch.equal(a[4].cpu(), c[4])
+            assert torch.equal(a[0][:ne].cpu(), c[0][:ne])
+            assert torch.equal(a[1][:nc].cpu(), c[1][:nc])
+            ra = ops.frontier_expand_readback(chunk, dev.begin, dev.end,
+                                              dev.dst, **kw)
+            rc_ = ops.frontier_expand_readback(chunk, hdev.begin, hdev.end,
+                                               hdev.dst, **kw)
+            assert ra[2] == rc_[2]
+            for x, y in zip(ra[:2], rc_[:2]):
+                assert (x is None) == (y is None)
+                if x is not None:
+                    np.testing.assert_array_equal(x, y)
+        checked += 1
+    assert checked >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["first_n", "max_results"])
+def test_cuda_solo_anytime_query_equals_host(cuda, monkeypatch, mode):
+    """A solo ``first_n`` or ``max_results`` query walks on K1's hop entry
+    (the host loop) and equals the host backend: paths in order, counts,
+    stats, EngineLimit; with a slot budget small enough that
+    ``_fanout_segments`` cuts chunks into several hops."""
+    from repro_torch.core import enumerate as en
+    g = power_law(2000, 6.0, seed=3)
+    idx = build_index(g, 1104, 997, 4, device=cuda)
+    total = enumerate_paths_idx(idx, backend="host", device=cuda).count
+    assert total > 20
+    for budget in (en.DEVICE_SLOT_BUDGET, 64):
+        monkeypatch.setattr(en, "DEVICE_SLOT_BUDGET", budget)
+        for limit in (1, total // 3, total + 5):
+            kw = {"first_n": limit} if mode == "first_n" \
+                else {"max_results": limit}
+            outs = []
+            for backend in ("device", "host"):
+                hops = fe.hop_launches
+                dispatches = ops.device_dispatch_count()
+                try:
+                    r = enumerate_paths_idx(idx, backend=backend,
+                                            chunk_size=16, device=cuda, **kw)
+                except en.EngineLimit:
+                    r = None
+                outs.append((r, fe.hop_launches - hops,
+                             ops.device_dispatch_count() - dispatches))
+            (got, hops, calls), (want, _, _) = outs
+            assert hops == calls > 0
+            assert (got is None) == (want is None)
+            if want is not None:
+                assert got.count == want.count and got.stats == want.stats
+                assert got.exhausted == want.exhausted
+                assert got.as_tuples() == want.as_tuples()
+
+
 def _deque_contract_equal(got, want, cfg):
     """A CUDA round against the plain round on the regions the host
     reads back (``DequeConfig``): the scalars, ``arena[:arena_cap]``, meta

@@ -23,7 +23,10 @@ wrappers:
   ``torch.tensor(...).to`` copy, which syncs the stream, and the whole
   ``ops.frontier_expand_fused`` call with the members' table rows stacked
   per call, as the fused driver passes them;
-* K1, ``frontier_masks``, on the same rows as one query.
+* K1, ``frontier_masks`` and the hop entry ``frontier_hop``, on the same
+  rows as one query; beside them the outputs the masks wrapper allocated
+  before it made one allocation (three ``torch.empty`` and a
+  ``torch.zeros``) and the one it makes now.
 
 Run from the root of a checkout on a machine with a CUDA device:
 ``python3 tools/wrapper_host_cost.py``.  Prints one JSON object of
@@ -187,6 +190,10 @@ def main() -> None:
                 *kptrs, rows, k1, md, dsts[0].shape[0], raw), 300),
         "k1_outputs_torch_empty_and_zeros": host_us(
             torch, lambda: outputs(True)),
+        "k1_outputs_one_empty": host_us(torch, lambda: torch.empty(
+            3 * rows * md + 4, dtype=torch.int32, device=dev)),
+        "k1_hop_wrapper": host_us(torch, lambda: fe.frontier_hop(
+            p, begins[0], ends[0], dsts[0], meta, max_deg=md), 300),
         "k1_argument_checks": host_us(torch, lambda: fe._check_args(
             p, begins[0], ends[0], dsts[0], meta, md)),
     })
