@@ -49,7 +49,24 @@ Phases, one JSON line each (``{"phase": ...}``):
    run on the same indexes (counts, paths, Fig.-6 stats, plans, DP
    tables), every batch item against a solo host run of its index, and
    the small graph's paths against the recursive oracle.
-7. ``kernel``  — the attention kernels K6 and K7 against their plain
+7. ``serve``   — the HcPE front-ends on the card: tenants ``social`` (the
+   large graph) and ``small`` (the small phase's) in one
+   ``GraphRegistry``, one ``BatchPathEnum(backend="device")`` behind an
+   ``HcPEServer`` and two ``AsyncHcPEServer``s.  Lines ``sync`` (40
+   requests: the batch picks counting, 8 with ``first_n=1000`` and paths,
+   8 duplicates, 8 on ``small``; counts against the batch phase's checked
+   results and a host run) and ``sync_warm`` (the same, all cached);
+   ``async`` (a seeded burst of 64, deadlines 50/200/1000 ms or none,
+   equal to the sync answers; then a lone full walk on K2 and a lone
+   ``first_n`` walk on K1's hop); ``deadline`` (enforced 0 ms deadlines:
+   unexhausted subsets); ``mutate`` (``registry.mutate`` drops an edge of
+   the first pick's paths and adds 64: no stale index, every re-served
+   pick equal to a host walk of a host build on the new version, no path
+   over the removed edge; a second mutation may leave at most a tenth of
+   a graph copy more on the card); ``metrics`` (both servers' snapshots,
+   no counter identity broken).  Then ``serve_check``: K5, K2 and K1's
+   hop launched in the phase, no attention kernel.
+8. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
    causal, windowed (2048), and with Lq < Lk, each in float32 (the
    split-TF32 kernel) and bfloat16 (the wgmma kernel); K7
@@ -66,7 +83,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    bound (bfloat16 operations over 989 TFLOP/s; K6 in float32 three TF32
    products per operation over 495 TFLOP/s, with ``simt_bound_ms``, its
    operations over the 67 TFLOP/s of float32 FMAs, beside it).
-8. ``lm``      — the LM serving path at full width and depth:
+9. ``lm``      — the LM serving path at full width and depth:
    ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
    of 128, vocab 92544) in float32 with random weights from the seed.
    ``make_prefill`` on 2 prompts of 2048 tokens (K6 in every layer), then
@@ -74,7 +91,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    requests (prompts of 8–64 tokens, 32 new tokens each; K7 in every
    layer of every step).  Then K6 and K7 are held against their plain
    versions at the shapes this phase gave them (``kernel`` lines).
-9. ``lm_check`` — against the port's own plain path on the card, TF32
+10. ``lm_check`` — against the port's own plain path on the card, TF32
    off: the prefill's last logits against ``forward(impl="xla")``; four
    served requests teacher-forced through ``decode_step`` (K7), every
    position's logits against ``forward(impl="xla")`` over the same
@@ -82,19 +99,19 @@ Phases, one JSON line each (``{"phase": ...}``):
    plain top-two margin exceeds the tolerance (2e-3 on logits of order
    1: float32 sums in other orders through 24 layers stay far below it,
    a bfloat16 computation would not).
-10. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
+11. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
    bfloat16 cache: the same prefill and the same 16 requests, with its
    own ``lm_bf16_trace`` and K6/K7 ``kernel`` lines at its shapes (K6 on
    the wgmma kernel, K7 in bfloat16).
-11. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
+12. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
    kernels and from ``forward(impl="xla")`` in bfloat16, each against
    the float32 plain path on the same bfloat16-rounded weights: the
    kernels' error may be at most 1.5 times the plain path's.  Both
    errors are printed, and K6's share of the prefill.
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 5, and set to 0 again just before phase 8 and just before phase
-10, each read just after its phase.  K5 is held against its plain
+phase 5, and set to 0 again just before phase 7, phase 9 and phase 11,
+each read just after its phase.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -1000,6 +1017,352 @@ def check_phase(np, tc, large_runs, small_runs, g_small, dev):
 
 
 # ---------------------------------------------------------------------------
+# the HcPE serving front-ends (HcPEServer, AsyncHcPEServer, GraphRegistry)
+# ---------------------------------------------------------------------------
+
+SERVE_KERNELS = ("frontier_fused_masks", "frontier_deque_round",
+                 "frontier_hop")
+
+
+def record_engine_runs(eng):
+    """Wrap the engine's ``run`` (both servers call ``engine.run``) so
+    every ``BatchOutput`` is kept for its timing split; returns the list
+    and a function that unwraps it."""
+    outputs = []
+    orig = eng.run
+
+    def run(*args, **kw):
+        out = orig(*args, **kw)
+        outputs.append(out)
+        return out
+
+    eng.run = run
+
+    def restore():
+        del eng.run
+    return outputs, restore
+
+
+def tenant_index_bytes(eng, graph_id):
+    """Device bytes of the index arrays the engine's cache holds for one
+    tenant, read without touching the LRU order or the counters."""
+    return sum(idx.__dict__["_device_arrays"].memory_bytes()
+               for key, idx in eng.cache._entries.items()
+               if key[0] == graph_id and "_device_arrays" in idx.__dict__)
+
+
+def percentiles(np, values):
+    v = np.asarray(values, np.float64)
+    return {f"p{q}_ms": float(np.percentile(v, q)) if v.size else 0.0
+            for q in (50, 90, 99)}
+
+
+def serve_line(np, kernels, eng, leg, outputs, launches0, extra):
+    """One ``serve`` line: the engine's time split over the leg's runs,
+    the cache, the tenants' index device bytes and the leg's launches."""
+    now = kernels.launch_counts()
+    emit({"phase": "serve", "leg": leg,
+          "engine_runs": len(outputs),
+          "distance_s": sum(o.timing.distance_seconds for o in outputs),
+          "index_s": sum(o.timing.index_seconds for o in outputs),
+          "optimize_s": sum(o.timing.optimize_seconds for o in outputs),
+          "enumerate_s": sum(o.timing.enumerate_seconds for o in outputs),
+          "fused_queries": sum(o.fused_queries for o in outputs),
+          "index_device_bytes": {gid: tenant_index_bytes(eng, gid)
+                                 for gid in ("social", "small")},
+          "launches": {n: now[n] - launches0[n] for n in now}, **extra})
+    outputs.clear()
+    return now
+
+
+def response_key(r):
+    return (r.graph_id, r.s, r.t, r.k, r.count_only, r.first_n)
+
+
+def serve_requests(np, serving, picks, g_small, seed):
+    """The sync leg's requests: the picks at k = 8 counting; the first 8
+    again with ``first_n=1000`` and their paths; 8 in-batch duplicates;
+    8 queries at k = 4 on the small tenant."""
+    Q = serving.PathQueryRequest
+    rng = np.random.default_rng(seed + 18)
+    reqs = [Q(uid=0, s=s, t=t, k=K_LARGE, graph_id="social")
+            for s, t, _ in picks[:16]]
+    reqs += [Q(uid=0, s=s, t=t, k=K_LARGE, graph_id="social",
+               count_only=False, first_n=1000) for s, t, _ in picks[:8]]
+    reqs += [Q(uid=0, s=s, t=t, k=K_LARGE, graph_id="social")
+             for s, t, _ in picks[:8]]
+    while len(reqs) < 40:
+        s, t = (int(x) for x in rng.choice(g_small.n, 2, replace=False))
+        reqs.append(Q(uid=0, s=s, t=t, k=4, graph_id="small"))
+    for uid, r in enumerate(reqs):
+        r.uid = uid
+    return reqs
+
+
+def serve_phase(torch, np, tc, kernels, serving, g, g_small, picks, full,
+                lone_paths, dev, seed):
+    """The HcPE front-ends on the card: one engine behind an
+    ``HcPEServer`` and two ``AsyncHcPEServer``s, two tenants in one
+    ``GraphRegistry``; legs ``sync``, ``sync_warm``, ``async``,
+    ``deadline``, ``mutate`` and ``metrics``.  ``full`` maps each pick's
+    (s, t) to its full result (the batch phase's, checked against the
+    host backend); ``lone_paths`` is the large phase's full walk of the
+    first pick."""
+    import asyncio
+    import gc
+
+    reg = serving.GraphRegistry()
+    reg.register("social", g)
+    reg.register("small", g_small)
+    eng = tc.BatchPathEnum(tau=TAU, chunk_size=CHUNK, backend="device",
+                           device=dev)
+    sync = serving.HcPEServer(reg, eng)
+    outputs, restore = record_engine_runs(eng)
+    t_phase = time.perf_counter()
+    try:
+        launches = kernels.launch_counts()
+
+        # sync: one serve of 40 requests, then the same list warm
+        reqs = serve_requests(np, serving, picks, g_small, seed)
+        small_host = tc.PathEnum(tau=TAU, backend="host", device=dev)
+        answers = {}
+        for leg in ("sync", "sync_warm"):
+            t0 = time.perf_counter()
+            resps, rep = sync.serve(reqs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            check(all(r.status == serving.STATUS_OK for r in resps),
+                  f"serve {leg}: a request was not served")
+            for q, r in zip(reqs, resps):
+                key = response_key(q)
+                if q.graph_id == "social":
+                    want = full[(q.s, q.t)]
+                    n_want = (want.count if q.first_n is None
+                              else min(want.count, q.first_n))
+                else:
+                    n_want = small_host.count(g_small, q.s, q.t, q.k)
+                check(r.count == n_want, f"serve {leg} {key}: count "
+                                         f"{r.count} vs {n_want}")
+                if key in answers:
+                    a = answers[key]
+                    check(r.count == a.count and (
+                        (r.paths is None and a.paths is None)
+                        or np.array_equal(r.paths, a.paths)),
+                        f"serve {leg} {key}: answer differs from the "
+                        f"first one")
+                answers.setdefault(key, r)
+                if r.paths is not None and r.count:
+                    check(bool((r.paths[:, 0] == q.s).all()),
+                          f"serve {leg} {key}: a path does not start at s")
+            if leg == "sync_warm":
+                check(all(r.index_cached for q, r in zip(reqs, resps)
+                          if q.graph_id == "social"),
+                      "serve sync_warm: a social response missed the cache")
+                check(rep.cache.misses == 0,
+                      f"serve sync_warm: cache {rep.cache}")
+            launches = serve_line(np, kernels, eng, leg, outputs, launches, {
+                "requests": len(reqs), "distinct": rep.distinct_queries,
+                "wall_s": wall, "queries_per_s": len(reqs) / wall,
+                "p50_ms": rep.p50_ms, "p90_ms": rep.p90_ms,
+                "p99_ms": rep.p99_ms,
+                "cache_hits": rep.cache.hits,
+                "cache_misses": rep.cache.misses,
+                "tenant_cache": {k: vars(v) for k, v in
+                                 rep.tenant_cache.items()},
+                "deduplicated": sum(r.deduplicated for r in resps),
+                "sharing_groups": rep.sharing_groups,
+                "results": rep.total_results})
+
+        # async: a seeded burst of 64 over the same keys, then two lone
+        # submits on the first pick (a full walk on K2, first_n on K1)
+        rng = np.random.default_rng(seed + 1800)
+        Q = serving.PathQueryRequest
+        burst = []
+        for uid in range(64):
+            j = int(rng.integers(0, 16))
+            s, t, _ = picks[j]
+            opts = ({"count_only": False, "first_n": 1000}
+                    if j < 8 and rng.integers(0, 2) else {})
+            burst.append(Q(uid=uid, s=s, t=t, k=K_LARGE, graph_id="social",
+                           deadline_ms=[50.0, 200.0, 1000.0, None][
+                               int(rng.integers(0, 4))], **opts))
+        s0, t0_, _ = picks[0]
+        lone = [Q(uid=100, s=s0, t=t0_, k=K_LARGE, graph_id="social",
+                  count_only=False),
+                Q(uid=101, s=s0, t=t0_, k=K_LARGE, graph_id="social",
+                  count_only=False, first_n=1000)]
+        asrv = serving.AsyncHcPEServer(reg, eng, batch_window_ms=2.0,
+                                       enforce_deadlines=False)
+
+        async def drive_async():
+            async with asrv:
+                got = await asrv.serve(burst)
+                return got, [await asrv.submit(r) for r in lone]
+        t0 = time.perf_counter()
+        got, lone_got = asyncio.run(drive_async())
+        wall = time.perf_counter() - t0
+        for q, r in zip(burst, got):
+            a = answers[response_key(q)]
+            check(r.status == serving.STATUS_OK and r.count == a.count
+                  and ((r.paths is None and a.paths is None)
+                       or np.array_equal(r.paths, a.paths)),
+                  f"serve async uid {q.uid}: differs from the sync leg")
+        full_walk, first_n = lone_got
+        check(full_walk.count == lone_paths.count
+              and full_walk.paths.shape[0] == full_walk.count
+              and sorted(map(tuple, full_walk.paths.tolist()))
+              == sorted(map(tuple, lone_paths.paths.tolist())),
+              "serve async: the lone full walk differs from the large "
+              "phase's")
+        a = answers[response_key(lone[1])]
+        check(first_n.count == a.count and np.array_equal(first_n.paths,
+                                                           a.paths),
+              "serve async: the lone first_n walk differs from the sync "
+              "leg's")
+        stats = asrv.stats
+        graded = [r for r in got if r.slo_met is not None]
+        launches = serve_line(np, kernels, eng, "async", outputs, launches, {
+            "requests": len(burst) + len(lone), "wall_s": wall,
+            "queries_per_s": (len(burst) + len(lone)) / wall,
+            **percentiles(np, [r.total_ms for r in got]),
+            "queue_ms_mean": stats.queue_ms_total / stats.completed,
+            "service_ms_mean": stats.service_ms_total / stats.completed,
+            "total_ms_mean": stats.total_ms_total / stats.completed,
+            "micro_batches": stats.micro_batches,
+            "slo_met_share": sum(r.slo_met for r in graded) / len(graded),
+            "lone_total_ms": [r.total_ms for r in lone_got],
+            "cache_hits": eng.cache.stats.hits,
+            "cache_misses": eng.cache.stats.misses})
+
+        # deadline: enforced deadlines of 0 ms stop before the first chunk
+        dsrv = serving.AsyncHcPEServer(reg, eng, batch_window_ms=2.0,
+                                       enforce_deadlines=True)
+        dl_reqs = [Q(uid=200 + i, s=s, t=t, k=K_LARGE, graph_id="social",
+                     count_only=False, deadline_ms=0.0)
+                   for i, (s, t, _) in enumerate(picks[:4])]
+
+        async def drive_deadline():
+            async with dsrv:
+                return await dsrv.serve(dl_reqs)
+        t0 = time.perf_counter()
+        dl_got = asyncio.run(drive_deadline())
+        wall = time.perf_counter() - t0
+        for q, r in zip(dl_reqs, dl_got):
+            want = set(full[(q.s, q.t)].as_tuples())
+            got_paths = {tuple(int(v) for v in row if v >= 0)
+                         for row in r.paths}
+            check(r.status == serving.STATUS_OK and not r.exhausted
+                  and r.slo_met is False and got_paths <= want
+                  and r.paths.shape[0] == r.count,
+                  f"serve deadline uid {q.uid}: {r.count} paths, "
+                  f"exhausted {r.exhausted}, slo_met {r.slo_met}")
+        launches = serve_line(np, kernels, eng, "deadline", outputs,
+                              launches, {
+                                  "requests": len(dl_reqs), "wall_s": wall,
+                                  "counts": [r.count for r in dl_got],
+                                  **percentiles(np, [r.total_ms
+                                                     for r in dl_got])})
+
+        # mutate: drop an edge of the first pick's paths, add 64 random
+        # edges; re-serve 8 picks against a host run on the new version
+        first = lone_paths.paths[0]
+        removed = (int(first[0]), int(first[1]))
+        mrng = np.random.default_rng(seed + 18000)
+        added = mrng.integers(0, g.n, (64, 2))
+        added = added[(added[:, 0] != removed[0]) | (added[:, 1] != removed[1])]
+        mem, mutate_s = [], []
+        t0 = time.perf_counter()
+        reg.mutate("social", remove=np.array([removed]), add=added)
+        mutate_s.append(time.perf_counter() - t0)
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated(dev))
+        snap = sync.metrics_snapshot()
+        check(snap.tenants["social"].graph_version == 1
+              and eng.cache.tenant_len("social") == 0
+              and tenant_index_bytes(eng, "social") == 0,
+              f"serve mutate: version {snap.tenants['social'].graph_version}"
+              f", {eng.cache.tenant_len('social')} entries left")
+        m_reqs = [Q(uid=300 + i, s=s, t=t, k=K_LARGE, graph_id="social",
+                    count_only=False) for i, (s, t, _) in
+                  enumerate(picks[:8])]
+        t0 = time.perf_counter()
+        m_got, m_rep = sync.serve(m_reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        g1 = reg.get("social")
+        host_stats = tc.EnumStats()
+        t1 = time.perf_counter()
+        dists = tc.batched_index_distances(
+            g1, [(q.s, q.t, K_LARGE) for q in m_reqs], device=dev)
+        for q, r, d in zip(m_reqs, m_got, dists):
+            idx = tc.build_index(g1, q.s, q.t, K_LARGE,
+                                 dist_fn=lambda *_a, _d=d: _d, device=dev)
+            plan = tc.plan_query(idx, tau=TAU, backend="host")
+            if plan.method == "dfs":
+                host = tc.enumerate_paths_idx(idx, chunk_size=CHUNK,
+                                              backend="host", device=dev)
+            else:
+                host = tc.enumerate_paths_join(idx, cut=plan.cut,
+                                               max_partials=20_000_000)
+            host_stats.merge(host.stats)
+            tag = f"serve mutate {q.s}->{q.t}"
+            check(not r.index_cached, f"{tag}: served off a stale index")
+            check(r.count == host.count and np.array_equal(r.paths,
+                                                           host.paths),
+                  f"{tag}: count {r.count} vs the host's {host.count}, or "
+                  f"paths differ")
+            hops = {(int(a), int(b)) for row in r.paths
+                    for a, b in zip(row[:-1], row[1:]) if b >= 0}
+            check(removed not in hops, f"{tag}: a path uses the removed "
+                                       f"edge {removed}")
+        host_s = time.perf_counter() - t1
+        check(m_rep.enum_stats == host_stats,
+              f"serve mutate: stats {m_rep.enum_stats} vs {host_stats}")
+        del g1, idx, host, dists
+        t0 = time.perf_counter()
+        reg.mutate("social", add=mrng.integers(0, g.n, (64, 2)))
+        mutate_s.append(time.perf_counter() - t0)
+        gc.collect()
+        mem.append(torch.cuda.memory_allocated(dev))
+        graph_bytes = g.to(dev).memory_bytes()
+        check(mem[1] - mem[0] <= 0.1 * graph_bytes,
+              f"serve mutate: {mem[1] - mem[0]} more bytes on the card "
+              f"after the second mutation (one graph copy: {graph_bytes})")
+        launches = serve_line(np, kernels, eng, "mutate", outputs, launches, {
+            "requests": len(m_reqs), "wall_s": wall,
+            "queries_per_s": len(m_reqs) / wall,
+            "p50_ms": m_rep.p50_ms, "p90_ms": m_rep.p90_ms,
+            "p99_ms": m_rep.p99_ms, "mutate_s": mutate_s,
+            "removed_edge": removed,
+            "cache_hits": m_rep.cache.hits,
+            "cache_misses": m_rep.cache.misses,
+            "host_check_s": host_s,
+            "memory_allocated_after_mutation": mem,
+            "graph_device_bytes": graph_bytes,
+            "counts": [r.count for r in m_got]})
+    finally:
+        restore()
+
+    # metrics: both servers' snapshots hold their counter identities
+    snaps = {"sync": sync.metrics_snapshot(), "async": asrv.metrics_snapshot(),
+             "deadline": dsrv.metrics_snapshot()}
+    for name, snap in snaps.items():
+        check(snap.violations() == [],
+              f"serve metrics {name}: {snap.violations()}")
+    emit({"phase": "serve", "leg": "metrics",
+          "hit_rate": {gid: tm.cache.hit_rate for gid, tm in
+                       snaps["sync"].tenants.items()},
+          "graph_version": {gid: tm.graph_version for gid, tm in
+                            snaps["sync"].tenants.items()},
+          "prometheus_lines": {name: len(s.to_prometheus().splitlines())
+                               for name, s in snaps.items()},
+          "async_stats": {k: v for k, v in vars(snaps["async"].serve).items()
+                          if not k.endswith("_ms_total")},
+          "seconds": time.perf_counter() - t_phase})
+    return kernels.launch_counts()
+
+
+# ---------------------------------------------------------------------------
 # the LM attention kernels (K6, K7) and the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -1547,6 +1910,24 @@ def main() -> None:
         check(launches[name] > 0, f"{name} never launched on the main path")
     emit({"phase": "check", "ok": True,
           "seconds": time.perf_counter() - t_start})
+
+    # the HcPE front-ends: counts from 0, read right after
+    full = {(i.s, i.t): i.result for i in batch_runs[0][2].items}
+    lone = next(out.result for s, t, leg, _kw, out, _r in large_runs
+                if leg == "paths")
+    kernels.reset_launch_counts()
+    serve_launches = serve_phase(torch, np, tc, kernels, serving, g, g_small,
+                                 picks, full, lone, dev, args.seed)
+    for name in SERVE_KERNELS:
+        check(serve_launches[name] > 0,
+              f"{name} never launched in the serve phase")
+    for name in LM_KERNELS + LM_BF16_KERNELS:
+        check(serve_launches[name] == 0,
+              f"{name} launched in the serve phase")
+    emit({"phase": "serve_check", "ok": True,
+          "launches": {n: serve_launches[n] for n in PATHENUM_KERNELS},
+          "seconds": time.perf_counter() - t_start})
+    del full, lone
     del large_runs, small_runs, batch_runs, index_of, largest, picks, shared
     del largest_hop
     del queries, dg

@@ -8,12 +8,22 @@ arrays in both packages (tests/test_torch_graph.py).
 
 ``Graph.to(device)`` holds the same arrays as tensors on a device (a
 ``DeviceGraph``), which the device index build reads
-(``index.build_index_device``).  Streaming mutation (``repro``'s
-``with_edges``, DESIGN.md §12) is ported with the serving slice.
+(``index.build_index_device``).
+
+Graphs are immutable values, but deployments stream (DESIGN.md §12):
+mutation is *versioned copying*, as in ``repro``.  ``with_edges`` (and
+the ``add_edges`` / ``remove_edges`` conveniences) rebuild the CSR
+around the new edge set through ``from_edges`` and return a new
+``Graph`` whose ``version`` is bumped by one; every index-cache key
+folds the version in (core/batch.py), so an index built against
+version v never answers a query against version v+1.  The copy is a
+new object, so it starts with no device arrays of its own: the old
+version's ``DeviceGraph`` is freed with the old ``Graph``.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -61,9 +71,86 @@ class Graph:
         """Number of edges."""
         return int(self.indices.shape[0])
 
+    def out_degree(self, v: int) -> int:
+        """Number of out-neighbours of ``v``."""
+        return int(self.indptr[v + 1] - self.indptr[v])
+
     def neighbors(self, v: int) -> np.ndarray:
         """Out-neighbours of ``v`` (sorted)."""
         return self.indices[self.indptr[v]:self.indptr[v + 1]]
+
+    def in_neighbors(self, v: int) -> np.ndarray:
+        """In-neighbours of ``v`` (sorted)."""
+        return self.rindices[self.rindptr[v]:self.rindptr[v + 1]]
+
+    def reverse(self) -> "Graph":
+        """The graph with every edge reversed (the CSR pair swapped)."""
+        return Graph(self.n, self.rindptr, self.rindices, self.indptr,
+                     self.indices, self.rindices_src(), self.redst())
+
+    def rindices_src(self) -> np.ndarray:
+        """The source (in reverse-CSR terms) of each reverse-CSR entry."""
+        return np.repeat(np.arange(self.n, dtype=np.int32),
+                         np.diff(self.rindptr).astype(np.int64))
+
+    def redst(self) -> np.ndarray:
+        """The destination of each reverse-CSR entry."""
+        return self.rindices
+
+    # -- streaming mutation (DESIGN.md §12) ---------------------------------
+
+    def edge_list(self) -> np.ndarray:
+        """The edge set as an (m, 2) int64 array in forward-CSR order."""
+        return np.stack([self.esrc.astype(np.int64),
+                         self.edst.astype(np.int64)], axis=1)
+
+    def with_edges(self, add: Optional[np.ndarray] = None,
+                   remove: Optional[np.ndarray] = None) -> "Graph":
+        """Versioned copy with ``add`` edges inserted and ``remove``
+        edges deleted (DESIGN.md §12), as ``repro``'s.
+
+        Both arguments are (r, 2) arrays of directed ``(src, dst)``
+        pairs with endpoints in [0, n).  Removals run first, then
+        insertions, so an edge in both is re-inserted.  Removing an edge
+        the graph does not hold raises ValueError; inserting one it holds
+        is a no-op, and self-loops are dropped.  The copy's ``version``
+        is ``self.version + 1`` even when the edge set is unchanged.
+        """
+        edges = self.edge_list()
+        if remove is not None:
+            rem = np.asarray(remove, dtype=np.int64).reshape(-1, 2)
+            self._check_range(rem, "remove")
+            if rem.size:
+                cur_keys = edges[:, 0] * self.n + edges[:, 1]
+                rem_keys = rem[:, 0] * self.n + rem[:, 1]
+                present = np.isin(rem_keys, cur_keys)
+                if not present.all():
+                    missing = rem[~present][0]
+                    raise ValueError(
+                        f"cannot remove edge ({int(missing[0])}, "
+                        f"{int(missing[1])}): not in the graph")
+                edges = edges[~np.isin(cur_keys, rem_keys)]
+        if add is not None:
+            ins = np.asarray(add, dtype=np.int64).reshape(-1, 2)
+            self._check_range(ins, "add")
+            edges = np.concatenate([edges, ins], axis=0)
+        rebuilt = from_edges(self.n, edges)
+        # replace() builds a fresh object: no _device_graphs of the parent
+        return dataclasses.replace(rebuilt, version=self.version + 1)
+
+    def add_edges(self, edges: np.ndarray) -> "Graph":
+        """``with_edges(add=edges)``, the streaming insert."""
+        return self.with_edges(add=edges)
+
+    def remove_edges(self, edges: np.ndarray) -> "Graph":
+        """``with_edges(remove=edges)``, the streaming delete; every edge
+        must exist."""
+        return self.with_edges(remove=edges)
+
+    def _check_range(self, pairs: np.ndarray, what: str) -> None:
+        if pairs.size and not ((pairs >= 0).all() and (pairs < self.n).all()):
+            raise ValueError(f"{what} edges must have endpoints in "
+                             f"[0, {self.n})")
 
     @classmethod
     def from_numpy(cls, n: int, indptr: np.ndarray, indices: np.ndarray,

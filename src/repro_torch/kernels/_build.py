@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List, Tuple
@@ -46,6 +47,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+# first use may come from a serving worker thread as well as the caller's
+# (serving/async_server.py): one thread builds and loads, the rest wait
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -115,11 +119,14 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of source ``name``, building it if needed."""
     lib = _loaded.get(name)
     if lib is None:
-        path = lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
+        with _load_lock:
+            lib = _loaded.get(name)
+            if lib is None:
+                path = lib_path(name)
+                if not path.exists():
+                    build_all()
+                lib = ctypes.CDLL(str(path))
+                _loaded[name] = lib
     return lib
 
 

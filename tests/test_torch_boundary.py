@@ -6,6 +6,11 @@
   caches, serving engine and launcher) default to ``device="cuda"``:
   without a CUDA device a default call raises instead of running on the
   CPU.
+* The HcPE front-ends (``HcPEServer``, ``AsyncHcPEServer``) build their
+  engine on the card by default and raise without one.
+* No ``async def`` body in ``src/repro_torch/serving`` blocks the event
+  loop or syncs the card (the port's counterpart of ``repro``'s
+  async-safety lint pass, an AST scan).
 * A kernel wrapper given CPU tensors runs the plain version and counts
   no launch.
 * ``chip_smoke.py`` exits non-zero and prints no result without a CUDA
@@ -32,7 +37,8 @@ from repro_torch.kernels import semiring_spmm as sr
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import (cache_from_numpy, init_cache, init_params,
                                 params_from_numpy)
-from repro_torch.serving import ServeEngine
+from repro_torch.serving import (AsyncHcPEServer, GraphRegistry,
+                                 HcPEServer, ServeEngine)
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "repro")
@@ -187,6 +193,110 @@ def test_lm_entry_points_default_to_cuda():
     assert all(torch.equal(a, b) for a, b in zip(
         (back["embed"], back["layers"][2]["mlp"]["w_up"]),
         (cpu["embed"], cpu["layers"][2]["mlp"]["w_up"])))
+
+
+def test_hcpe_front_ends_default_to_cuda():
+    """Both front-ends' default engine is the port's: ``backend="device"``
+    on ``device="cuda"``; without a card a default construction raises
+    and nothing falls back to a CPU engine."""
+    g = tc.erdos_renyi(40, 4.0, seed=7)
+    reg = GraphRegistry(g)
+    if torch.cuda.is_available():
+        for srv in (HcPEServer(g), AsyncHcPEServer(reg)):
+            assert srv.engine.device.type == "cuda"
+            assert srv.engine.engine.backend == "device"
+        return
+    for call in (lambda: HcPEServer(g), lambda: AsyncHcPEServer(g),
+                 lambda: HcPEServer(reg, backend="host"),
+                 lambda: AsyncHcPEServer(reg, sharing="off")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert reg.graph_ids() == ("default",) and len(reg._engines) == 0
+    srv = AsyncHcPEServer(g, device="cpu")
+    assert srv.engine.device.type == "cpu"
+    assert srv.engine.engine.backend == "device"
+    eng = tc.BatchPathEnum(device="cpu", backend="host")
+    assert HcPEServer(g, eng).engine is eng
+
+
+def test_kernel_library_loads_once_under_racing_threads(monkeypatch,
+                                                       tmp_path):
+    """The async server's worker threads may be a kernel's first users:
+    ``_build.load`` builds and loads each library once however many
+    threads race to it (the build and the load are faked here)."""
+    import threading
+    import time
+
+    lib = tmp_path / "libfake.so"
+    builds, loads = [], []
+
+    def fake_build_all():
+        time.sleep(0.01)
+        builds.append(1)
+        lib.write_bytes(b"")
+        return {}
+
+    def fake_cdll(path):
+        time.sleep(0.005)
+        loads.append(path)
+        return object()
+
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "lib_path", lambda name: lib)
+    monkeypatch.setattr(_build, "build_all", fake_build_all)
+    monkeypatch.setattr(_build.ctypes, "CDLL", fake_cdll)
+    got = []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: got.append(
+            _build.load("frontier"))) for _ in range(4 * (os.cpu_count() or 2))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads)
+    assert len(got) == len(threads) and len({id(x) for x in got}) == 1
+    assert len(builds) == 1 and len(loads) == 1
+
+
+# calls an ``async def`` body of the serving layer must not make: a
+# blocking sleep, the engine itself (it belongs in the worker thread),
+# and every read that syncs the card
+BLOCKING_ATTRS = ("sleep", "item", "cpu", "numpy", "tolist", "synchronize")
+
+
+def _blocking_calls(fn):
+    for node in ast.walk(fn):
+        if not isinstance(node, ast.Call):
+            continue
+        func = node.func
+        name = ast.unparse(func)
+        if isinstance(func, ast.Attribute) and (
+                func.attr in BLOCKING_ATTRS and name != "asyncio.sleep"
+                or name.endswith("engine.run")):
+            yield f"{fn.name}:{node.lineno} calls {name}"
+
+
+def test_async_serving_bodies_do_not_block_the_loop():
+    files = sorted((REPO / "src" / "repro_torch" / "serving").glob("*.py"))
+    bad, bodies = [], 0
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for fn in ast.walk(tree):
+            if isinstance(fn, ast.AsyncFunctionDef):
+                bodies += 1
+                bad += [f"{path.name} {hit}" for hit in _blocking_calls(fn)]
+    assert bodies >= 8, bodies        # the async server's coroutines
+    assert not bad, bad
+    # the scan sees what it is meant to catch
+    probe = ast.parse("async def f(self):\n    time.sleep(1)\n"
+                      "    x.item()\n    self.engine.run(g, q)\n"
+                      "    torch.cuda.synchronize()\n"
+                      "    await asyncio.sleep(0)\n").body[0]
+    assert len(list(_blocking_calls(probe))) == 4
 
 
 def _run_smoke(cwd, env):

@@ -935,3 +935,81 @@ def test_cuda_serve_engine_equals_cpu(cuda):
                                max_tokens=6))
         outs.append((eng.run(), eng.steps_run))
     assert outs[0] == outs[1]
+
+
+def _serving_requests(g, n_req, seed, k=4, **kw):
+    from repro_torch.serving import PathQueryRequest
+    rng = np.random.default_rng(seed)
+    reqs = []
+    while len(reqs) < n_req:
+        s, t = (int(x) for x in rng.choice(g.n, 2, replace=False))
+        reqs.append(PathQueryRequest(uid=len(reqs), s=s, t=t, k=k,
+                                     graph_id="g", **kw))
+    return reqs
+
+
+def _response_key(r):
+    return (r.uid, r.status, r.count, r.plan_method, r.index_cached,
+            r.deduplicated, r.exhausted, r.graph_id, r.slo_met,
+            None if r.paths is None else r.paths.tolist())
+
+
+@pytest.mark.cuda
+def test_cuda_hcpe_servers_equal_cpu_and_survive_mutation(cuda):
+    """``HcPEServer`` and ``AsyncHcPEServer`` on the card (their default
+    engine: the device backend, K1, K2 and K5) answer exactly as the same
+    servers on the CPU, before and after a streaming mutation; the
+    mutation purges the tenant's indexes on the card."""
+    import asyncio
+
+    from repro_torch.core.batch import BatchPathEnum
+    from repro_torch.serving import (AsyncHcPEServer, GraphRegistry,
+                                     HcPEServer)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g = erdos_renyi(300, 6.0, seed=2)
+    reqs = (_serving_requests(g, 6, 0, count_only=False)
+            + _serving_requests(g, 4, 1, first_n=5)
+            + _serving_requests(g, 6, 2))
+    for i, r in enumerate(reqs):
+        r.uid = i
+    solo = PathEnum(backend="host", device="cpu")
+    lone_full = next(q for q in reqs[:6] if solo.count(g, q.s, q.t, q.k))
+    lone_first = next(q for q in reqs[6:10]
+                      if solo.count(g, q.s, q.t, q.k) > q.first_n)
+    drop = g.edge_list()[:3]
+    add = np.array([[0, 1], [1, 0], [5, 9]])
+    outs = {}
+    for dev in ("cpu", cuda):
+        reg = GraphRegistry()
+        reg.register("g", g)
+        sync = HcPEServer(reg, device=dev)
+        eng = BatchPathEnum(device=dev)
+        reset_launch_counts()
+        r0, rep0 = sync.serve(reqs)
+        # lone requests with results run solo: a full walk (K2) and a
+        # first_n walk (K1's hop)
+        r0 += sync.serve([lone_full])[0] + sync.serve([lone_first])[0]
+
+        async def drive():
+            async with AsyncHcPEServer(reg, eng, batch_window_ms=1.0) as srv:
+                first = await srv.serve(reqs)
+                reg.mutate("g", add=add, remove=drop)
+                second = await srv.serve(reqs)
+                return first, second, srv.metrics_snapshot()
+        r1, r2, snap = asyncio.run(drive())
+        counts = launch_counts()
+        assert sync.engine.cache.tenant_len("g") == 0
+        assert eng.cache.tenant_len("g") == len({(q.s, q.t, q.k)
+                                                 for q in reqs})
+        assert snap.violations() == [] and snap.tenants["g"].graph_version == 1
+        assert not any(r.index_cached for r in r2[:6])
+        outs[str(dev)] = ([_response_key(r) for r in r0 + r1 + r2],
+                          vars(rep0.enum_stats), counts)
+    cpu_out, card_out = outs["cpu"], outs[str(cuda)]
+    assert card_out[0] == cpu_out[0]
+    assert card_out[1] == cpu_out[1]
+    assert all(v == 0 for v in cpu_out[2].values())
+    for name in ("frontier_fused_masks", "frontier_deque_round",
+                 "frontier_hop"):
+        assert card_out[2][name] > 0, name
