@@ -66,7 +66,32 @@ Phases, one JSON line each (``{"phase": ...}``):
    a graph copy more on the card); ``metrics`` (both servers' snapshots,
    no counter identity broken).  Then ``serve_check``: K5, K2 and K1's
    hop launched in the phase, no attention kernel.
-8. ``kernel``  — the attention kernels K6 and K7 against their plain
+8. ``ranked``  — ranked (any-k), constrained and baseline enumeration
+   through the entry points.  ``ranked_hops``: the large phase's queries
+   with ``order="hops"`` (full, and ``first_n=1000``) on the bucketed
+   driver over K1's hop entry, equal row for row to the host heap and to
+   the unranked exhausted walk, the top n its prefix (buckets drained,
+   K1 hop launches, stats).  ``ranked_weight``: seeded non-negative
+   float64 weights on every edge, ``order="weight"`` (device index, host
+   heap): the unranked paths re-sorted by ``rank.path_costs`` and
+   ``canonical_perm``.  ``ranked_join``: the small graph, both orders,
+   ``mode="join"`` and ``"dfs"``, against the rank-order oracle.
+   ``constrained``: ``AccumulativeValue`` with and without
+   ``monotone_upper`` and ``ActionSequence`` on the large queries,
+   against the unranked paths post-filtered over the graph's own edge
+   ids; an ``edge_predicate_mask`` on the small graph against the oracle.
+   ``serve_ranked``: the large graph as a weighted tenant beside the
+   weightless small one behind a fresh engine, an ``HcPEServer`` batch
+   and an ``AsyncHcPEServer`` burst of both orders with and without
+   ``first_n`` on 4 picks, each answer equal to the solo ``PathEnum``
+   result, one ``order="weight"`` request on the small tenant
+   ``rejected_no_weights``, no failed micro-batch.  ``baseline``:
+   ``generic_dfs`` (Alg. 1) on the small graph, its count equal to
+   PathEnum's and its Fig.-6 ``edges_accessed`` beside the index walk's.
+   Each line names the backend its queries resolved to.  Then
+   ``ranked_check``: K1's hop launched, K5, K2 and the attention kernels
+   never.
+9. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
    causal, windowed (2048), and with Lq < Lk, each in float32 (the
    split-TF32 kernel) and bfloat16 (the wgmma kernel); K7
@@ -83,7 +108,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    bound (bfloat16 operations over 989 TFLOP/s; K6 in float32 three TF32
    products per operation over 495 TFLOP/s, with ``simt_bound_ms``, its
    operations over the 67 TFLOP/s of float32 FMAs, beside it).
-9. ``lm``      — the LM serving path at full width and depth:
+10. ``lm``      — the LM serving path at full width and depth:
    ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
    of 128, vocab 92544) in float32 with random weights from the seed.
    ``make_prefill`` on 2 prompts of 2048 tokens (K6 in every layer), then
@@ -91,7 +116,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    requests (prompts of 8–64 tokens, 32 new tokens each; K7 in every
    layer of every step).  Then K6 and K7 are held against their plain
    versions at the shapes this phase gave them (``kernel`` lines).
-10. ``lm_check`` — against the port's own plain path on the card, TF32
+11. ``lm_check`` — against the port's own plain path on the card, TF32
    off: the prefill's last logits against ``forward(impl="xla")``; four
    served requests teacher-forced through ``decode_step`` (K7), every
    position's logits against ``forward(impl="xla")`` over the same
@@ -99,19 +124,19 @@ Phases, one JSON line each (``{"phase": ...}``):
    plain top-two margin exceeds the tolerance (2e-3 on logits of order
    1: float32 sums in other orders through 24 layers stay far below it,
    a bfloat16 computation would not).
-11. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
+12. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
    bfloat16 cache: the same prefill and the same 16 requests, with its
    own ``lm_bf16_trace`` and K6/K7 ``kernel`` lines at its shapes (K6 on
    the wgmma kernel, K7 in bfloat16).
-12. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
+13. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
    kernels and from ``forward(impl="xla")`` in bfloat16, each against
    the float32 plain path on the same bfloat16-rounded weights: the
    kernels' error may be at most 1.5 times the plain path's.  Both
    errors are printed, and K6's share of the prefill.
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 5, and set to 0 again just before phase 7, phase 9 and phase 11,
-each read just after its phase.  K5 is held against its plain
+phase 5, and set to 0 again just before phase 7, phase 8, phase 10 and
+phase 12, each read just after its phase.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -150,6 +175,7 @@ K_LARGE = 8
 TAU = 1e5
 CHUNK = 16384
 PICK_SECONDS = 150.0             # probe budget for the large queries
+RANKED_FIRST_N = 1000            # the ranked phase's top-n requests
 
 PATHENUM_KERNELS = ("frontier_masks", "frontier_hop", "frontier_fused_masks",
                     "frontier_deque_round", "counting_spmm", "minplus_spmv",
@@ -1363,6 +1389,408 @@ def serve_phase(torch, np, tc, kernels, serving, g, g_small, picks, full,
 
 
 # ---------------------------------------------------------------------------
+# ranked (any-k), constrained and baseline enumeration
+# ---------------------------------------------------------------------------
+
+def bucket_counter(en):
+    """Count the hop buckets `_drive_ranked_buckets` drains (each drained
+    bucket is one ``heappop`` of its key heap); returns the record and a
+    function that unwraps it."""
+    import heapq
+    import types
+    seen = {"buckets": 0}
+
+    def heappop(heap):
+        seen["buckets"] += 1
+        return heapq.heappop(heap)
+    orig = en.heapq
+    en.heapq = types.SimpleNamespace(heappop=heappop,
+                                     heappush=heapq.heappush)
+
+    def restore():
+        en.heapq = orig
+    return seen, restore
+
+
+def same_rows(np, a, b) -> bool:
+    """Two results hold the same rows in the same order."""
+    return (a.count == b.count and a.paths.shape == b.paths.shape
+            and bool(np.array_equal(a.paths, b.paths))
+            and bool(np.array_equal(a.lengths, b.lengths)))
+
+
+def edge_ids(np, g):
+    """(u, v) arrays -> graph edge ids, from the graph's own sorted edge
+    keys (independent of any index)."""
+    keys = g.esrc.astype(np.int64) * g.n + g.edst.astype(np.int64)
+    check(bool((np.diff(keys) > 0).all()), "graph edge keys are not sorted")
+
+    def look(u, v):
+        q = u.astype(np.int64) * g.n + v.astype(np.int64)
+        pos = np.searchsorted(keys, q)
+        check(bool((keys[np.minimum(pos, keys.size - 1)] == q).all()),
+              "a path uses an edge the graph does not have")
+        return pos
+    return look
+
+
+def accumulate(np, look, result, values, op, init):
+    """Each row's edge values folded left to right with ``op`` (the order
+    tests/test_constraints.py's post-filter sums in)."""
+    acc = np.full(result.paths.shape[0], init, dtype=values.dtype)
+    for j in range(result.paths.shape[1] - 1):
+        act = result.lengths > j
+        if not act.any():
+            break
+        eid = look(result.paths[act, j], result.paths[act, j + 1])
+        acc[act] = op(acc[act], values[eid])
+    return acc
+
+
+def dfa_accepts(np, look, result, labels, A, accepting, start=0):
+    """Whether the DFA ``A`` accepts each row's edge labels."""
+    st = np.full(result.paths.shape[0], start, dtype=np.int64)
+    for j in range(result.paths.shape[1] - 1):
+        act = (result.lengths > j) & (st >= 0)
+        if not act.any():
+            break
+        eid = look(result.paths[act, j], result.paths[act, j + 1])
+        st[act] = A[st[act], labels[eid]]
+    ok = st >= 0
+    out = np.zeros(st.shape[0], dtype=bool)
+    out[ok] = accepting[st[ok]]
+    return out
+
+
+def ranked_phase(torch, np, tc, en, kernels, serving, g, g_small, picks,
+                 queries, full, lone, dev, seed):
+    """Ranked (any-k), constrained and baseline enumeration through the
+    entry points on the card: legs ``ranked_hops``, ``ranked_weight``,
+    ``ranked_join``, ``constrained``, ``serve_ranked`` and ``baseline``,
+    one line each with its launches and the backend each leg resolved
+    to.  ``full`` maps each pick's (s, t) to its unranked exhausted
+    result (the batch phase's, checked against the host backend);
+    ``lone`` is the large phase's full walk of the first pick."""
+    import asyncio
+    fe = kernels.frontier_expand
+    pe = tc.PathEnum(tau=TAU, chunk_size=CHUNK, backend="device",
+                     use_device_index=True, device=dev)
+    w_large = np.random.default_rng(seed + 1900).random(g.m)
+    t_phase = time.perf_counter()
+    launches = kernels.launch_counts()
+    solo = {}      # (s, t, order, first_n) -> the PathEnum result
+
+    def line(leg, extra):
+        nonlocal launches
+        now = kernels.launch_counts()
+        emit({"phase": "ranked", "leg": leg, **extra,
+              "launches": {n: now[n] - launches[n] for n in
+                           PATHENUM_KERNELS}})
+        launches = now
+
+    # ranked_hops: the bucketed driver on K1's hop entry
+    for s, t, _idx in queries:
+        for first_n in (None, RANKED_FIRST_N):
+            seen, restore = bucket_counter(en)
+            hops0 = fe.hop_launches
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                out = pe.query(g, s, t, K_LARGE, count_only=False,
+                               order="hops", first_n=first_n)
+            finally:
+                restore()
+            wall = time.perf_counter() - t0
+            r = out.result
+            solo[(s, t, "hops", first_n)] = r
+            tag = f"ranked_hops {s}->{t} first_n={first_n}"
+            if first_n is None:
+                heap = tc.enumerate_paths_idx(out.index, order="hops",
+                                              backend="host", device=dev)
+                check(same_rows(np, r, heap) and r.exhausted,
+                      f"{tag}: differs from the host heap")
+                check(same_rows(np, r, full[(s, t)]),
+                      f"{tag}: differs from the unranked exhausted walk")
+                if (s, t) == queries[0][:2]:
+                    check(same_rows(np, r, lone),
+                          f"{tag}: differs from the large phase's walk")
+            else:
+                whole = solo[(s, t, "hops", None)]
+                n = min(first_n, whole.count)
+                check(r.count == n and bool(np.array_equal(
+                    r.paths, whole.paths[:n])),
+                      f"{tag}: not the first {first_n} rows of the full run")
+                check(r.exhausted == (whole.count < max(first_n, 1)),
+                      f"{tag}: exhausted {r.exhausted}")
+            line("ranked_hops", {
+                "s": s, "t": t, "k": K_LARGE, "first_n": first_n,
+                "backend": en.resolve_backend(out.index, "device",
+                                              order="hops"),
+                "count": r.count, "exhausted": r.exhausted,
+                "stats": vars(r.stats), "buckets": seen["buckets"],
+                "k1_hop_launches": fe.hop_launches - hops0,
+                "wall_s": wall, "index_s": out.timing.index_seconds,
+                "plan_s": out.timing.optimize_seconds,
+                "enum_s": out.timing.enumerate_seconds})
+
+    # ranked_weight: device index, host heap
+    for s, t, _idx in queries:
+        for first_n in (None, RANKED_FIRST_N):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pe.query(g, s, t, K_LARGE, count_only=False,
+                           order="weight", weights=w_large, first_n=first_n)
+            wall = time.perf_counter() - t0
+            r = out.result
+            solo[(s, t, "weight", first_n)] = r
+            tag = f"ranked_weight {s}->{t} first_n={first_n}"
+            spec = tc.make_rank_spec("weight", w_large)
+            costs = tc.rank.path_costs(out.index, r.paths, r.lengths, spec)
+            check(costs.dtype == np.float64, f"{tag}: costs {costs.dtype}")
+            if first_n is None:
+                un = full[(s, t)]
+                perm = tc.rank.canonical_perm(un.paths, tc.rank.path_costs(
+                    out.index, un.paths, un.lengths, spec))
+                check(r.exhausted and r.count == un.count and bool(
+                    np.array_equal(r.paths, un.paths[perm])),
+                      f"{tag}: differs from the unranked paths re-sorted "
+                      f"by cost")
+            else:
+                whole = solo[(s, t, "weight", None)]
+                n = min(first_n, whole.count)
+                check(r.count == n and bool(np.array_equal(
+                    r.paths, whole.paths[:n])),
+                      f"{tag}: not the first {first_n} rows of the full run")
+            check(bool((np.diff(costs) >= 0).all()),
+                  f"{tag}: costs decrease")
+            line("ranked_weight", {
+                "s": s, "t": t, "k": K_LARGE, "first_n": first_n,
+                "backend": en.resolve_backend(out.index, "device",
+                                              order="weight"),
+                "count": r.count, "exhausted": r.exhausted,
+                "stats": vars(r.stats),
+                "cost_min": float(costs[0]) if costs.size else None,
+                "cost_max": float(costs[-1]) if costs.size else None,
+                "wall_s": wall, "index_s": out.timing.index_seconds,
+                "enum_s": out.timing.enumerate_seconds})
+
+    # ranked_join: the small graph, both orders, join and dfs plans
+    w_small = np.random.default_rng(seed + 1901).integers(
+        0, 4, size=g_small.m).astype(np.float64)
+    rng = np.random.default_rng(3)
+    small_qs = [(1104, 997, 4)]
+    while len(small_qs) < 3:
+        s, t = (int(x) for x in rng.choice(g_small.n, 2, replace=False))
+        if tc.build_index(g_small, s, t, 5, device=dev).num_index_edges \
+                >= 64:
+            small_qs.append((s, t, 5))
+    spe = tc.PathEnum(tau=TAU, backend="device", device=dev)
+    t0 = time.perf_counter()
+    rows = []
+    for s, t, k in small_qs:
+        for order in ("hops", "weight"):
+            weights = w_small if order == "weight" else None
+            want = tc.oracle.enumerate_paths(g_small, s, t, k, order=order,
+                                             weights=weights)
+            for mode in ("join", "dfs"):
+                out = spe.query(g_small, s, t, k, mode=mode, order=order,
+                                weights=weights)
+                check(out.result.as_tuples() == want,
+                      f"ranked_join {s}->{t} {order} {mode}: differs from "
+                      f"the oracle")
+                rows.append({"s": s, "t": t, "k": k, "order": order,
+                             "mode": mode, "plan": out.plan.method,
+                             "cut": out.plan.cut,
+                             "backend": "host" if mode == "join" else
+                             en.resolve_backend(out.index, "device",
+                                                order=order),
+                             "count": out.result.count,
+                             "enum_s": out.timing.enumerate_seconds})
+    line("ranked_join", {"queries": rows,
+                         "wall_s": time.perf_counter() - t0})
+
+    # constrained: Appendix E on the large graph's queries, an edge mask
+    # on the small graph
+    crng = np.random.default_rng(seed + 1902)
+    values = crng.uniform(0.0, 10.0, size=g.m)
+    labels = crng.integers(0, 2, size=g.m)
+    A = np.array([[0, 1], [-1, 1]])                 # label words 0*1*
+    accepting = np.array([True, True])
+    look = edge_ids(np, g)
+    rows = []
+    t_leg = time.perf_counter()
+    for s, t, _idx in queries:
+        un = full[(s, t)]
+        beta = accumulate(np, look, un, values, np.add, 0.0)
+        thresh = float(np.median(beta)) if beta.size else 0.0
+        cases = [
+            ("accumulate_at_least", tc.constraints.AccumulativeValue(
+                values, accept=lambda b, th=thresh: b >= th),
+             beta >= thresh),
+            ("accumulate_monotone", tc.constraints.AccumulativeValue(
+                values, accept=lambda b, th=thresh: b <= th,
+                monotone_upper=thresh), beta <= thresh),
+            ("action_sequence", tc.constraints.ActionSequence(
+                A, labels, 0, accepting),
+             dfa_accepts(np, look, un, labels, A, accepting)),
+        ]
+        for name, cons, keep in cases:
+            t0 = time.perf_counter()
+            out = pe.query(g, s, t, K_LARGE, count_only=False,
+                           constraint=cons)
+            wall = time.perf_counter() - t0
+            r = out.result
+            want = un.paths[keep]
+            check(r.exhausted and r.count == want.shape[0] and bool(
+                np.array_equal(r.paths, want)),
+                  f"constrained {s}->{t} {name}: {r.count} paths vs the "
+                  f"post-filtered {want.shape[0]}")
+            rows.append({"s": s, "t": t, "constraint": name,
+                         "backend": en.resolve_backend(
+                             out.index, "device", cons),
+                         "plan": out.plan.method, "count": r.count,
+                         "unconstrained": un.count,
+                         "edges_accessed": r.stats.edges_accessed,
+                         "unconstrained_edges_accessed":
+                             un.stats.edges_accessed,
+                         "wall_s": wall,
+                         "enum_s": out.timing.enumerate_seconds})
+    mask = tc.constraints.edge_predicate_mask(
+        g_small, lambda u, v: (u + v) % 3 != 0)
+    for s, t, k in small_qs:
+        want = tc.oracle.enumerate_paths(
+            g_small, s, t, k, edge_pred=lambda a, b: (a + b) % 3 != 0)
+        # the unranked full walk on the host: K2 stays out of the phase
+        out = spe.query(g_small, s, t, k, mode="dfs", count_only=False,
+                        edge_mask=mask, backend="host")
+        check(sorted(out.result.as_tuples()) == want,
+              f"constrained edge_mask {s}->{t}: differs from the oracle")
+        rows.append({"s": s, "t": t, "constraint": "edge_mask",
+                     "backend": "host", "count": out.result.count,
+                     "enum_s": out.timing.enumerate_seconds})
+    line("constrained", {"queries": rows,
+                         "wall_s": time.perf_counter() - t_leg})
+
+    # serve_ranked: both front-ends, a weighted tenant and a weightless one
+    serve_picks = [(s, t) for s, t, _ in picks[:4]]
+    for s, t in serve_picks[len(queries):]:
+        for order in ("hops", "weight"):
+            for first_n in (None, RANKED_FIRST_N):
+                solo[(s, t, order, first_n)] = pe.query(
+                    g, s, t, K_LARGE, count_only=False, order=order,
+                    weights=w_large if order == "weight" else None,
+                    first_n=first_n).result
+    reg = serving.GraphRegistry()
+    reg.register("social", g, edge_weights=w_large)
+    reg.register("small", g_small)
+    eng = tc.BatchPathEnum(tau=TAU, chunk_size=CHUNK, backend="device",
+                           device=dev)
+    Q = serving.PathQueryRequest
+    reqs = [Q(uid=0, s=s, t=t, k=K_LARGE, graph_id="social",
+              count_only=False, order=order, first_n=first_n)
+            for s, t in serve_picks for order in ("hops", "weight")
+            for first_n in (None, RANKED_FIRST_N)]
+    reqs.append(Q(uid=0, s=small_qs[0][0], t=small_qs[0][1], k=4,
+                  graph_id="small", order="weight"))
+    for uid, q in enumerate(reqs):
+        q.uid = uid
+
+    def check_answers(leg, resps):
+        for q, r in zip(reqs, resps):
+            if q.graph_id == "small":
+                check(r.status == serving.STATUS_REJECTED_NO_WEIGHTS
+                      and r.count == 0,
+                      f"{leg} uid {q.uid}: {r.status}, not "
+                      f"rejected_no_weights")
+                continue
+            want = solo[(q.s, q.t, q.order, q.first_n)]
+            check(r.status == serving.STATUS_OK and r.count == want.count
+                  and r.exhausted == want.exhausted
+                  and bool(np.array_equal(r.paths, want.paths)),
+                  f"{leg} uid {q.uid}: differs from the solo PathEnum "
+                  f"result")
+
+    sync = serving.HcPEServer(reg, eng)
+    asrv = serving.AsyncHcPEServer(reg, eng, batch_window_ms=2.0)
+    outputs, restore = record_engine_runs(eng)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resps, rep = sync.serve(reqs)
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        sync_runs = list(outputs)
+        outputs.clear()
+
+        async def drive():
+            async with asrv:
+                return await asrv.serve(reqs)
+        t0 = time.perf_counter()
+        aresps = asyncio.run(drive())
+        async_s = time.perf_counter() - t0
+    finally:
+        restore()
+    check_answers("serve_ranked sync", resps)
+    check_answers("serve_ranked async", aresps)
+    stats = asrv.stats
+    check(stats.failed == 0 and stats.rejected_no_weights == 1,
+          f"serve_ranked async: failed {stats.failed}, rejected_no_weights "
+          f"{stats.rejected_no_weights}")
+    check(asrv.metrics_snapshot().violations() == [],
+          "serve_ranked async: a metrics identity broke")
+    line("serve_ranked", {
+        "requests": len(reqs),
+        "backend": {o: en.resolve_backend(
+            queries[0][2], eng.engine.backend, order=o)
+            for o in ("hops", "weight")},
+        "sync_wall_s": sync_s, "async_wall_s": async_s,
+        "sync_engine_runs": len(sync_runs),
+        "sync_index_s": sum(o.timing.index_seconds for o in sync_runs),
+        "sync_enumerate_s": sum(o.timing.enumerate_seconds
+                                for o in sync_runs),
+        "async_engine_runs": len(outputs),
+        "async_enumerate_s": sum(o.timing.enumerate_seconds
+                                 for o in outputs),
+        "sync_p50_ms": rep.p50_ms, "sync_p99_ms": rep.p99_ms,
+        "async_p50_ms": percentiles(np, [r.total_ms for r in aresps
+                                         if r.count])["p50_ms"],
+        "micro_batches": stats.micro_batches,
+        "rejected_no_weights": stats.rejected_no_weights,
+        "failed": stats.failed, "cache_hits": eng.cache.stats.hits,
+        "cache_misses": eng.cache.stats.misses,
+        "statuses": sorted({r.status for r in resps})})
+
+    # baseline: Alg. 1 on the raw graph against the index walk (Fig. 6)
+    host_pe = tc.PathEnum(tau=TAU, backend="host", device=dev)
+    rows = []
+    t_leg = time.perf_counter()
+    for s, t, k in small_qs:
+        t0 = time.perf_counter()
+        base = tc.generic_dfs(g_small, s, t, k)
+        base_s = time.perf_counter() - t0
+        out = host_pe.query(g_small, s, t, k, mode="dfs")
+        check(base.count == out.result.count
+              and base.paths == sorted(out.result.as_tuples()),
+              f"baseline {s}->{t}: {base.count} paths vs PathEnum's "
+              f"{out.result.count}")
+        rows.append({"s": s, "t": t, "k": k, "backend": "host",
+                     "count": base.count,
+                     "baseline_edges_accessed": base.stats.edges_accessed,
+                     "index_edges_accessed":
+                         out.result.stats.edges_accessed,
+                     "baseline_invalid_partials":
+                         base.stats.invalid_partials,
+                     "index_invalid_partials":
+                         out.result.stats.invalid_partials,
+                     "baseline_s": base_s,
+                     "index_enum_s": out.timing.enumerate_seconds})
+    line("baseline", {"queries": rows, "wall_s": time.perf_counter() - t_leg})
+    emit({"phase": "ranked", "leg": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return kernels.launch_counts()
+
+
+# ---------------------------------------------------------------------------
 # the LM attention kernels (K6, K7) and the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -1926,6 +2354,24 @@ def main() -> None:
               f"{name} launched in the serve phase")
     emit({"phase": "serve_check", "ok": True,
           "launches": {n: serve_launches[n] for n in PATHENUM_KERNELS},
+          "seconds": time.perf_counter() - t_start})
+
+    # ranked, constrained and baseline enumeration: counts from 0, read
+    # right after
+    kernels.reset_launch_counts()
+    ranked_launches = ranked_phase(torch, np, tc, en, kernels, serving, g,
+                                   g_small, picks, queries, full, lone, dev,
+                                   args.seed)
+    check(ranked_launches["frontier_hop"] > 0,
+          "frontier_hop never launched in the ranked phase")
+    for name in ("frontier_fused_masks", "frontier_deque_round"):
+        check(ranked_launches[name] == 0,
+              f"{name} launched in the ranked phase")
+    for name in LM_KERNELS + LM_BF16_KERNELS:
+        check(ranked_launches[name] == 0,
+              f"{name} launched in the ranked phase")
+    emit({"phase": "ranked_check", "ok": True,
+          "launches": {n: ranked_launches[n] for n in PATHENUM_KERNELS},
           "seconds": time.perf_counter() - t_start})
     del full, lone
     del large_runs, small_runs, batch_runs, index_of, largest, picks, shared

@@ -1,7 +1,9 @@
 """PathEnum core on PyTorch: index, estimators, optimizer, enumerators
 (the port of ``repro.core``; DESIGN.md §1-2 describe the pipeline)."""
 
-from . import clock, oracle, planner, rank, sharing
+from . import (clock, constraints, oracle, planner, rank, relations,
+               sharing)
+from .baseline import BaselineResult, generic_dfs
 from .batch import (DEFAULT_GRAPH_ID, BatchItem, BatchOutput, BatchPathEnum,
                     BatchTiming, CacheStats, IndexCache,
                     batched_index_distances, edge_mask_hash, tenant_of)
@@ -17,8 +19,11 @@ from .index import (DeviceIndexArrays, LightweightIndex, build_index,
 from .join import enumerate_paths_join, hop_count_dp
 from .pathenum import PathEnum, QueryOutput, QueryTiming
 from .planner import DEFAULT_TAU, Plan, plan_query
+from .rank import RankSpec, make_rank_spec
 
 __all__ = [
+    "BaselineResult", "RankSpec", "constraints", "generic_dfs",
+    "make_rank_spec", "relations",
     "BatchItem", "BatchOutput", "BatchPathEnum", "BatchTiming", "CacheStats",
     "DEFAULT_GRAPH_ID", "IndexCache", "batched_index_distances",
     "edge_mask_hash", "enumerate_fused_device", "sharing", "tenant_of",

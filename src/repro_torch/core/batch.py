@@ -24,8 +24,9 @@ The planner runs once per distinct query, and every result is
 byte-identical to a solo ``PathEnum`` run (tests/test_torch_batch.py
 holds the port to ``repro``'s engine).  Like the port's ``PathEnum``,
 the engine defaults to ``device="cuda"`` and ``backend="device"``.
-Ranked batches (``order=``) belong to a later slice and raise
-NotImplementedError.
+Ranked batches (``order=``, DESIGN.md §10) keep construction sharing
+only: they opt out of the shared walk and of fused launches, and each
+query takes the solo ranked drivers.
 """
 from __future__ import annotations
 
@@ -630,18 +631,22 @@ class BatchPathEnum:
 
     # -- enumeration --------------------------------------------------------
     def _enumerate(self, idx: LightweightIndex, plan: Plan, count_only: bool,
-                   first_n: Optional[int],
-                   deadline: Optional[float]) -> EnumResult:
+                   first_n: Optional[int], deadline: Optional[float],
+                   order: Optional[str] = None,
+                   weights: Optional[np.ndarray] = None) -> EnumResult:
+        """One query's solo enumeration under its plan."""
         if plan.method == "dfs":
             return enumerate_paths_idx(idx, chunk_size=self.engine.chunk_size,
                                        count_only=count_only, first_n=first_n,
                                        deadline=deadline,
                                        backend=self.engine.backend,
+                                       order=order, weights=weights,
                                        device=idx.device)
         return enumerate_paths_join(idx, cut=plan.cut, count_only=count_only,
                                     first_n=first_n,
                                     max_partials=self.engine.max_partials,
-                                    deadline=deadline)
+                                    deadline=deadline, order=order,
+                                    weights=weights)
 
     def run(self, graph: Graph, queries: Sequence[Tuple[int, int, int]],
             count_only: bool = True, first_n: Optional[int] = None,
@@ -663,8 +668,11 @@ class BatchPathEnum:
         not yet enumerated return empty with ``exhausted=False``.
         ``_precomputed_distances`` injects ``(dist_s, dist_t)`` per full
         ``QueryKey`` so the build skips its BFS (for a masked key they
-        must come from the filtered graph).  ``order`` (ranked batches)
-        belongs to a later slice and raises NotImplementedError.
+        must come from the filtered graph).  ``order`` requests ranked
+        enumeration for the whole batch (DESIGN.md §10): each query's
+        paths come back in non-decreasing hop or weight rank
+        (``weights``: graph edge order, non-negative), ``first_n`` is the
+        per-query top n and a deadline truncation a rank-optimal prefix.
         """
         rank.make_rank_spec(order, weights)
         t_batch = time.perf_counter()
@@ -687,7 +695,9 @@ class BatchPathEnum:
                                      group_builds=eff_sharing == "auto")
 
         # sharing phase (DESIGN.md §13): plan the distinct keys up front,
-        # then serve whole overlap groups off one shared prefix walk
+        # then serve whole overlap groups off one shared prefix walk.
+        # Ranked batches opt out (a shared walk does not emit in rank
+        # order) and keep construction sharing only
         shared_results: Dict[QueryKey, EnumResult] = {}
         shared_latency: Dict[QueryKey, float] = {}
         plans_pre: Dict[QueryKey, Plan] = {}
@@ -704,7 +714,7 @@ class BatchPathEnum:
                 timing.optimize_seconds += plan.optimize_seconds
                 plans_pre[key] = plan
 
-        if eff_sharing == "auto":
+        if eff_sharing == "auto" and order is None:
             plan_all()
             if len(plans_pre) > 1:
                 t1 = time.perf_counter()
@@ -717,11 +727,13 @@ class BatchPathEnum:
 
         # fused device phase (DESIGN.md §9): the remaining dfs-plan
         # queries that resolve to the device backend expand together,
-        # one K5 launch per round for the whole batch
+        # one K5 launch per round for the whole batch; ranked batches
+        # keep the solo path
         fused_results: Dict[QueryKey, EnumResult] = {}
         fused_latency: Dict[QueryKey, float] = {}
         fused_dispatches = 0
-        if self.fused != "off" and self.engine.backend in ("device", "auto"):
+        if order is None and self.fused != "off" \
+                and self.engine.backend in ("device", "auto"):
             plan_all()
             elig = [kk for kk in dict.fromkeys(keys)
                     if kk not in shared_results
@@ -772,7 +784,7 @@ class BatchPathEnum:
                 extra = plan_wall.get(key, 0.0)
                 t1 = time.perf_counter()
                 res = self._enumerate(idx, plan, count_only, first_n,
-                                      deadline)
+                                      deadline, order=order, weights=weights)
                 timing.enumerate_seconds += time.perf_counter() - t1
             item = BatchItem(s=key[1], t=key[2], k=key[3], result=res,
                              plan=plan, index_cached=was_cached,

@@ -5,17 +5,26 @@ Partial results are rows of a fixed-width int32 matrix; one hop expands
 every row of a chunk, and a LIFO deque of chunks keeps the walk depth
 first (DESIGN.md §2).  Two expansion backends share the driver loop
 (DESIGN.md §9): ``host`` runs ``_expand_chunk`` in numpy, ``device`` runs
-the frontier masks (K1) on the index's device.  Full unconstrained
-device walks keep the work deque resident on the device (K2,
-``_drive_resident``).  Paths, emission order, ``EnumStats`` and chunk
-boundaries are bit-identical across backends and equal ``repro``'s.
+K1's hop entry on the index's device.  Full unconstrained device walks
+keep the work deque resident on the device (K2, ``_drive_resident``).
+Paths, emission order, ``EnumStats`` and chunk boundaries are
+bit-identical across backends and equal ``repro``'s.
 
-Constrained (Appendix-E) and ranked enumeration belong to a later slice
-of the port and raise NotImplementedError here.
+Constrained queries (Appendix E, ``core.constraints``) carry one state
+slot per partial through the host step; they run on the host, as in
+``repro``.  Ranked (any-k) enumeration (DESIGN.md §10,
+``order="hops"|"weight"``) replaces the LIFO chunk walk with a
+priority-ordered frontier: the host runs a best-first heap over
+partial-path lower bounds (``_drive_ranked_heap``), and ``order="hops"``
+on the device drains integer hop-bound buckets through K1's hop entry
+(``_drive_ranked_buckets``).  Both emit in non-decreasing ``(cost,
+lexicographic sequence)`` order, so ``first_n`` returns the top n and a
+deadline truncation is a rank-optimal prefix.
 """
 from __future__ import annotations
 
 import dataclasses
+import heapq
 import os
 from typing import List, Optional, Tuple
 
@@ -29,16 +38,16 @@ from .index import LightweightIndex, check_index_device
 DEVICE_AUTO_MAX_K = 8
 DEVICE_AUTO_MIN_EDGES = 2048
 
-CONSTRAINTS_LATER = ("constrained enumeration (constraint=) is not ported "
-                     "yet; it belongs to the ranked/constrained slice of "
-                     "the port (ROADMAP.md queue 1 item 5)")
 
-
-def resolve_backend(idx: LightweightIndex, backend: Optional[str]) -> str:
+def resolve_backend(idx: LightweightIndex, backend: Optional[str],
+                    constraint=None, order: Optional[str] = None) -> str:
     """Resolve a requested backend to the one that will run (DESIGN.md §9).
 
-    ``auto`` takes the device for small k and a dense-enough index when
-    the index lives on a CUDA device (or ``REPRO_DEVICE_ENUM=force``);
+    A constrained query runs on the host (its state machines are host
+    numpy), and so does ``order="weight"`` (float rank buckets do not
+    exist; the device scheduler drains integer hop buckets).  ``auto``
+    takes the device for small k and a dense-enough index when the index
+    lives on a CUDA device (or ``REPRO_DEVICE_ENUM=force``);
     ``REPRO_DEVICE_ENUM=off|0`` runs every query on the host, explicit
     ``backend="device"`` requests included.
     """
@@ -47,6 +56,8 @@ def resolve_backend(idx: LightweightIndex, backend: Optional[str]) -> str:
     if os.environ.get("REPRO_DEVICE_ENUM", "").lower() in ("off", "0"):
         return "host"
     if backend is None or backend == "host":
+        return "host"
+    if constraint is not None or order == "weight":
         return "host"
     if backend == "device":
         return "device"
@@ -155,64 +166,96 @@ def enumerate_paths_idx(
     ``deadline`` is an absolute ``clock.now()`` timestamp checked between
     chunks; past it, the results so far return with ``exhausted=False``.
     ``first_n`` stops after exactly n results; ``max_results`` raises
-    EngineLimit past the limit.  ``constraint`` and ``order`` belong to a
-    later slice and raise NotImplementedError.
+    EngineLimit past the limit.
+
+    ``constraint`` is an Appendix-E object (``core.constraints``) whose
+    vectorized per-partial state rides the walk (host only).  ``order``
+    switches to ranked enumeration: paths come back in non-decreasing
+    hop count or edge-weight sum (``weights``, graph edge order), ties
+    broken on the vertex sequence; ``first_n`` is then the top n.
+    ``order`` and ``constraint`` together raise ValueError.
     """
     check_index_device(idx, device)
-    rank.make_rank_spec(order, weights)
-    if constraint is not None:
-        raise NotImplementedError(CONSTRAINTS_LATER)
-    resolved = resolve_backend(idx, backend)
-    if resolved == "device" and first_n is None and max_results is None \
-            and os.environ.get("REPRO_DEVICE_DEQUE", "").lower() \
-            not in ("off", "0"):
-        # full device walks keep the work deque on the device; anytime
-        # contracts need per-chunk host decisions and take the host loop
-        return _drive_resident(idx, chunk_size=chunk_size,
-                               count_only=count_only, deadline=deadline)
-    step = _device_step(idx) if resolved == "device" else _host_step(idx)
-    return _drive(idx, step, chunk_size=chunk_size, count_only=count_only,
-                  first_n=first_n, max_results=max_results,
-                  deadline=deadline)
+    spec = rank.make_rank_spec(order, weights)
+    if spec is not None and constraint is not None:
+        raise ValueError("order= cannot be combined with constraint= "
+                         "(constrained ranked enumeration is not "
+                         "supported; post-filter instead)")
+    resolved = resolve_backend(idx, backend, constraint, order=order)
+    if spec is None:
+        if resolved == "device" and first_n is None \
+                and max_results is None \
+                and os.environ.get("REPRO_DEVICE_DEQUE", "").lower() \
+                not in ("off", "0"):
+            # full device walks keep the work deque on the device; anytime
+            # contracts need per-chunk host decisions and take the host
+            # loop
+            return _drive_resident(idx, chunk_size=chunk_size,
+                                   count_only=count_only, deadline=deadline)
+        step = _device_step(idx) if resolved == "device" \
+            else _host_step(idx, constraint)
+        return _drive(idx, step, chunk_size=chunk_size,
+                      count_only=count_only, first_n=first_n,
+                      max_results=max_results, constraint=constraint,
+                      deadline=deadline)
+    if resolved == "device":
+        return _drive_ranked_buckets(idx, _device_step(idx),
+                                     chunk_size=chunk_size,
+                                     count_only=count_only, first_n=first_n,
+                                     max_results=max_results,
+                                     deadline=deadline)
+    return _drive_ranked_heap(idx, spec, chunk_size=chunk_size,
+                              count_only=count_only, first_n=first_n,
+                              max_results=max_results, deadline=deadline)
 
 
 def _drive(idx: LightweightIndex, step, chunk_size: int, count_only: bool,
            first_n: Optional[int], max_results: Optional[int],
-           deadline: Optional[float]) -> EnumResult:
-    """The backend-independent IDX-DFS driver: seeds the root chunk and
-    runs `_drive_from`.  ``step(paths, depth, stats, want_cont)`` does one
-    hop for one chunk and returns None (chunk dead, stats updated) or
-    ``(emit_rows, cont_rows)`` in emission order."""
+           deadline: Optional[float], constraint=None) -> EnumResult:
+    """The backend-independent IDX-DFS driver: seeds the root chunk (and
+    its constraint state) and runs `_drive_from`.
+
+    ``step(paths, depth, stats, want_cont)`` does one hop for one chunk
+    and returns None (chunk dead, stats updated) or ``(emit_rows,
+    cont_rows)`` in emission order.  Under a ``constraint`` the step also
+    takes the chunk's state, ``step(..., cstate)``, and returns
+    ``(emit_rows, cont_rows, cont_state)``."""
     root = np.full((1, idx.k + 1), PAD, dtype=np.int32)
     root[0, 0] = idx.s
-    work: List[Tuple[np.ndarray, int]] = [(root, 0)]
+    cstate0 = constraint.init(1) if constraint is not None else None
+    work: List[Tuple[np.ndarray, int, object]] = [(root, 0, cstate0)]
     return _drive_from(idx, step, work, EnumStats(), [], [], 0,
                        chunk_size=chunk_size, count_only=count_only,
                        first_n=first_n, max_results=max_results,
-                       deadline=deadline)
+                       deadline=deadline, constraint=constraint)
 
 
 def _drive_from(idx: LightweightIndex, step,
-                work: List[Tuple[np.ndarray, int]], stats: EnumStats,
-                out_paths: List[np.ndarray], out_lens: List[np.ndarray],
-                count: int, chunk_size: int, count_only: bool,
-                first_n: Optional[int], max_results: Optional[int],
-                deadline: Optional[float]) -> EnumResult:
+                work: List[Tuple[np.ndarray, int, object]],
+                stats: EnumStats, out_paths: List[np.ndarray],
+                out_lens: List[np.ndarray], count: int, chunk_size: int,
+                count_only: bool, first_n: Optional[int],
+                max_results: Optional[int], deadline: Optional[float],
+                constraint=None) -> EnumResult:
     """`_drive`'s loop, resumable from mid-walk state (the resident
     deque's capacity-stall fallback rebuilds ``work`` and continues
-    here).  Owns the LIFO walk, the deadline check, first_n's exact trim,
-    max_results and the chunk_size split."""
+    here).  ``work`` holds ``(paths, depth, constraint_state)`` chunks.
+    Owns the LIFO walk, the deadline check, first_n's exact trim,
+    max_results and the chunk_size split (a chunk's constraint state
+    goes through ``constraint.slice`` with it)."""
     k = idx.k
     while work:
         if deadline is not None and clock.expired(deadline):
             return _finalize(idx, out_paths, out_lens, count, stats,
                              exhausted=False)
-        paths, depth = work.pop()
+        paths, depth, cstate = work.pop()
         stats.chunks += 1
-        expanded = step(paths, depth, stats, depth + 1 < k)
+        args = (paths, depth, stats, depth + 1 < k)
+        expanded = step(*args) if constraint is None \
+            else step(*args, cstate)
         if expanded is None:
             continue
-        emit_rows, cont_rows = expanded
+        emit_rows, cont_rows = expanded[:2]
 
         if emit_rows is not None and emit_rows.shape[0]:
             count += emit_rows.shape[0]
@@ -233,32 +276,57 @@ def _drive_from(idx: LightweightIndex, step,
             # split into chunks; push in reverse so earlier rows pop first
             starts = range(0, cont_rows.shape[0], chunk_size)
             for st in reversed(list(starts)):
-                work.append((cont_rows[st:st + chunk_size], depth + 1))
+                sl = slice(st, st + chunk_size)
+                piece_cs = constraint.slice(expanded[2], sl) \
+                    if constraint is not None else None
+                work.append((cont_rows[sl], depth + 1, piece_cs))
 
     return _finalize(idx, out_paths, out_lens, count, stats, exhausted=True,
                      canonical=True)
 
 
-def _host_step(idx: LightweightIndex):
+def _host_step(idx: LightweightIndex, constraint=None):
     """The numpy expansion step: `_expand_chunk` folded to the driver's
-    ``(emit_rows, cont_rows)`` contract."""
+    ``(emit_rows, cont_rows)`` contract, or with a ``constraint`` its
+    Appendix-E machinery (extend, accept, gather) folded to
+    ``(emit_rows, cont_rows, cont_state)``."""
 
-    def step(paths, depth, stats, want_cont):
+    def step(paths, depth, stats, want_cont, cstate=None):
         expanded = _expand_chunk(idx, paths, depth, stats)
         if expanded is None:
             return None
-        parent, _pos, vnew, emit, cont = expanded
+        parent, pos, vnew, emit, cont = expanded
+
+        if constraint is not None:
+            cstate_new, keep = constraint.extend(cstate, parent,
+                                                 idx.fwd_eid[pos], vnew)
+            stats.invalid_partials += int(((emit | cont) & ~keep).sum())
+            emit = emit & keep
+            cont = cont & keep
 
         def rows_of(sel):
             rows = paths[parent[sel]].copy()
             rows[:, depth + 1] = vnew[sel]
             return rows
 
-        emit_rows = rows_of(np.nonzero(emit)[0]) if emit.any() else None
-        cont_rows = None
+        emit_rows = None
+        if emit.any():
+            sel = np.nonzero(emit)[0]
+            if constraint is not None:
+                acc = constraint.accept(cstate_new, sel)
+                stats.invalid_partials += int((~acc).sum())
+                sel = sel[acc]
+            if sel.size:
+                emit_rows = rows_of(sel)
+        cont_rows, cont_state = None, None
         if want_cont and cont.any():
-            cont_rows = rows_of(np.nonzero(cont)[0])
-        return emit_rows, cont_rows
+            sel = np.nonzero(cont)[0]
+            cont_rows = rows_of(sel)
+            if constraint is not None:
+                cont_state = constraint.gather(cstate_new, sel)
+        if constraint is None:
+            return emit_rows, cont_rows
+        return emit_rows, cont_rows, cont_state
 
     return step
 
@@ -400,8 +468,8 @@ def _drive_resident(idx: LightweightIndex, chunk_size: int,
             lens = m_len[:nc].cpu().numpy().astype(np.int64)
             depths = m_depth[:nc].cpu().numpy()
             starts = np.concatenate([[0], np.cumsum(lens)[:-1]])
-            work: List[Tuple[np.ndarray, int]] = [
-                (rows[starts[j]:starts[j] + lens[j]], int(depths[j]))
+            work: List[Tuple[np.ndarray, int, object]] = [
+                (rows[starts[j]:starts[j] + lens[j]], int(depths[j]), None)
                 for j in range(nc)]
             return _drive_from(idx, _device_step(idx), work, stats,
                                out_paths, out_lens, count,
@@ -413,10 +481,190 @@ def _drive_resident(idx: LightweightIndex, chunk_size: int,
                      exhausted=True, canonical=True)
 
 
+def _drive_ranked_heap(idx: LightweightIndex, spec: "rank.RankSpec",
+                       chunk_size: int, count_only: bool,
+                       first_n: Optional[int], max_results: Optional[int],
+                       deadline: Optional[float]) -> EnumResult:
+    """Best-first host driver for ranked enumeration (DESIGN.md §10).
+
+    Two heaps over the canonical ``(cost, sequence)`` key: *partials*,
+    keyed by an admissible lower bound (accumulated cost plus
+    ``rank.remaining_lower_bound`` at the frontier vertex), and
+    *results*, keyed by exact cost.  The minimum result is emitted only
+    once it provably precedes every completion of every live partial:
+    for hops an exact tuple compare against the minimum partial, for
+    weights a clearance of ``min bound − rank.weight_slack``.  Otherwise
+    a batch of equal-depth partials is popped from the heap top and
+    expanded through `_expand_chunk`; speculative expansion is safe
+    because the gate alone decides emission order.
+
+    ``first_n`` stops after the n-th emission (the top n); a deadline
+    returns only the gated emissions, a rank-optimal prefix.
+    """
+    k, s = idx.k, idx.s
+    stats = EnumStats()
+    out_paths: List[np.ndarray] = []
+    out_lens: List[np.ndarray] = []
+    count = 0
+    lb = rank.remaining_lower_bound(idx, spec)
+    zero = 0.0 if spec.is_weight else 0
+
+    root = np.full(k + 1, PAD, dtype=np.int32)
+    root[0] = s
+    tick = 0  # heap tiebreak, so comparison never reaches the ndarray
+    # entry: (bound-or-cost, sequence tuple, tick, depth, row, acc)
+    partials = [(zero + lb[s], (int(s),), tick, 0, root, zero)]
+    results: List[Tuple] = []
+
+    def gated(res_key, part_key):
+        if spec.is_weight:
+            return res_key[0] < part_key[0] - rank.weight_slack(part_key[0])
+        return res_key[:2] < part_key[:2]
+
+    while partials or results:
+        if deadline is not None and clock.expired(deadline):
+            return _finalize(idx, out_paths, out_lens, count, stats,
+                             exhausted=False)
+        if results and (not partials or gated(results[0], partials[0])):
+            _cost, _seq, _tick, depth, row, _acc = heapq.heappop(results)
+            if first_n is not None and count >= first_n:
+                return _finalize(idx, out_paths, out_lens, count, stats,
+                                 exhausted=False)
+            count += 1
+            stats.results += 1
+            if not count_only:
+                out_paths.append(row[None, :])
+                out_lens.append(np.full(1, depth, np.int32))
+            if max_results is not None and count > max_results:
+                raise EngineLimit(f"more than {max_results} results")
+            if first_n is not None and count >= first_n:
+                return _finalize(idx, out_paths, out_lens, count, stats,
+                                 exhausted=False)
+            continue
+
+        batch = [heapq.heappop(partials)]
+        depth = batch[0][3]
+        while partials and len(batch) < chunk_size \
+                and partials[0][3] == depth:
+            batch.append(heapq.heappop(partials))
+        rows = np.stack([e[4] for e in batch])
+        accs = np.asarray([e[5] for e in batch])
+        stats.chunks += 1
+        expanded = _expand_chunk(idx, rows, depth, stats)
+        if expanded is None:
+            continue
+        parent, pos, vnew, emit, cont = expanded
+        acc_new = accs[parent] + rank.edge_step_costs(idx, spec, pos)
+
+        for i in np.nonzero(emit)[0]:
+            p = int(parent[i])
+            row = rows[p].copy()
+            row[depth + 1] = vnew[i]
+            tick += 1
+            heapq.heappush(results, (acc_new[i],
+                                     batch[p][1] + (int(vnew[i]),),
+                                     tick, depth + 1, row, acc_new[i]))
+        if depth + 1 < k:
+            for i in np.nonzero(cont)[0]:
+                p = int(parent[i])
+                row = rows[p].copy()
+                row[depth + 1] = vnew[i]
+                tick += 1
+                heapq.heappush(partials,
+                               (acc_new[i] + lb[vnew[i]],
+                                batch[p][1] + (int(vnew[i]),),
+                                tick, depth + 1, row, acc_new[i]))
+
+    return _finalize(idx, out_paths, out_lens, count, stats, exhausted=True)
+
+
+def _drive_ranked_buckets(idx: LightweightIndex, step, chunk_size: int,
+                          count_only: bool, first_n: Optional[int],
+                          max_results: Optional[int],
+                          deadline: Optional[float]) -> EnumResult:
+    """Rank-bucketed device driver for ``order="hops"`` (DESIGN.md §10).
+
+    Hop bounds are integers, so the best-first frontier collapses into
+    buckets: a partial row with lower bound ``b = depth + dist_t[last]``
+    lives in bucket ``b``.  Buckets drain in ascending order through the
+    unchanged expansion ``step`` (K1's hop entry on the card): a child
+    either emits (cost exactly ``b``) or re-buckets at ``depth+1 +
+    dist_t[child] ≥ b``, so once bucket ``b`` is empty its emissions are
+    the complete cost-``b`` stratum.  One lex sort per stratum gives the
+    canonical ``(cost, sequence)`` order, bit-identical to the heap.
+
+    ``first_n`` trims inside a sorted stratum; a deadline keeps only
+    completed strata (the bucket in progress is discarded), again a
+    rank-optimal prefix.
+    """
+    k, s = idx.k, idx.s
+    stats = EnumStats()
+    out_paths: List[np.ndarray] = []
+    out_lens: List[np.ndarray] = []
+    count = 0
+    dist_t = idx.dist_t.astype(np.int64)
+
+    root = np.full((1, k + 1), PAD, dtype=np.int32)
+    root[0, 0] = s
+    bucket_keys = [int(dist_t[s])]
+    buckets = {int(dist_t[s]): [(root, 0)]}
+
+    while bucket_keys:
+        b = heapq.heappop(bucket_keys)
+        pend = buckets.pop(b)
+        stratum: List[np.ndarray] = []
+        while pend:
+            if deadline is not None and clock.expired(deadline):
+                return _finalize(idx, out_paths, out_lens, count, stats,
+                                 exhausted=False)
+            rows, depth = pend.pop()
+            stats.chunks += 1
+            expanded = step(rows, depth, stats, depth + 1 < k)
+            if expanded is None:
+                continue
+            emit_rows, cont_rows = expanded
+            if emit_rows is not None and emit_rows.shape[0]:
+                stratum.append(emit_rows)
+            if cont_rows is not None and cont_rows.shape[0] \
+                    and depth + 1 < k:
+                nb = depth + 1 + dist_t[cont_rows[:, depth + 1]]
+                for val in np.unique(nb):
+                    sel = cont_rows[nb == val]
+                    if int(val) == b:
+                        dest = pend
+                    else:
+                        dest = buckets.setdefault(int(val), [])
+                        if len(dest) == 0:
+                            heapq.heappush(bucket_keys, int(val))
+                    for st in range(0, sel.shape[0], chunk_size):
+                        dest.append((sel[st:st + chunk_size], depth + 1))
+        if not stratum:
+            continue
+        allr = np.concatenate(stratum, axis=0)
+        allr = allr[np.lexsort(tuple(allr[:, j] for j in range(k, -1, -1)))]
+        nres = allr.shape[0]
+        count += nres
+        stats.results += nres
+        if not count_only:
+            out_paths.append(allr)
+            out_lens.append(np.full(nres, b, np.int32))
+        if max_results is not None and count > max_results:
+            raise EngineLimit(f"more than {max_results} results")
+        if first_n is not None and count >= first_n:
+            count = _trim_to_first_n(out_paths, out_lens, count, first_n,
+                                     count_only, stats)
+            return _finalize(idx, out_paths, out_lens, count, stats,
+                             exhausted=False)
+
+    return _finalize(idx, out_paths, out_lens, count, stats, exhausted=True)
+
+
 def _trim_to_first_n(out_paths, out_lens, count, first_n, count_only,
                      stats) -> int:
     """Drop the over-emitted tail of the last chunk so exactly ``first_n``
-    results come back (the truncated prefix stays in emission order)."""
+    results come back.  Under ``order`` the emitters feed it in rank
+    order, so the survivors are the top n; with ``order=None`` a
+    truncated prefix stays in the plan's emission order."""
     excess = count - first_n
     if excess > 0:
         stats.results -= excess
@@ -431,7 +679,8 @@ def _finalize(idx, out_paths, out_lens, count, stats, exhausted,
               canonical: bool = False) -> EnumResult:
     """Concatenate emitted blocks into an EnumResult.  ``canonical``
     applies the ``(length, sequence)`` sort, requested only for exhausted
-    results so every backend and plan returns the same ordered list."""
+    unranked results so every backend and plan returns the same ordered
+    list (the ranked drivers emit in their own canonical order)."""
     k = idx.k
     if out_paths:
         paths = np.concatenate(out_paths, axis=0)

@@ -7,8 +7,15 @@ The ``(t,t)`` virtual self-loop of the relation construction (§3.1 rule
 length ≤ k in one evaluation.  The within-half simple-path check runs
 during expansion, the cross-half check at join time.  The join itself
 is host numpy; the join plan's hop-count DP (``hop_count_dp``) runs on
-the device under ``backend="device"`` (DESIGN.md §9).  Ranked joins
-belong to a later slice of the port.
+the device under ``backend="device"`` (DESIGN.md §9).  A constraint is
+applied to full tuples at join time (``check_full``, Appendix E).
+
+Ranked mode (DESIGN.md §10): ``order=`` keeps the same halves and the
+same per-group join, but processes cut-key groups in ascending order of
+a lower bound on their cheapest joinable result and gates emission on
+the next group's bound, so anytime truncations are rank-optimal prefixes
+and a full run returns the canonical ``(cost, sequence)`` order of the
+DFS drivers.
 """
 from __future__ import annotations
 
@@ -19,8 +26,8 @@ from typing import List, Optional
 import numpy as np
 
 from . import clock, estimator, rank
-from .enumerate import (CONSTRAINTS_LATER, DEVICE_AUTO_MIN_EDGES, EngineLimit,
-                        EnumResult, EnumStats, _finalize, _trim_to_first_n)
+from .enumerate import (DEVICE_AUTO_MIN_EDGES, EngineLimit, EnumResult,
+                        EnumStats, _finalize, _trim_to_first_n)
 from .graph import PAD
 from .index import LightweightIndex
 
@@ -135,14 +142,22 @@ def enumerate_paths_join(
     ``first_n`` evaluates both halves but stops emitting after exactly n
     results (``exhausted=False``); ``deadline`` (absolute
     ``clock.now()``) is checked before each half and between cut-key
-    groups.  ``constraint`` and ``order`` belong to a later slice.
+    groups.  ``constraint`` filters full tuples at join time.  ``order``
+    switches to the ranked join (`_join_ranked`); ``order`` and
+    ``constraint`` together raise ValueError.
     """
     k, s, t = idx.k, idx.s, idx.t
     if not 0 < cut < k:
         raise ValueError(f"cut must be in (0, k), got {cut}")
-    rank.make_rank_spec(order, weights)
-    if constraint is not None:
-        raise NotImplementedError(CONSTRAINTS_LATER)
+    spec = rank.make_rank_spec(order, weights)
+    if spec is not None and constraint is not None:
+        raise ValueError("order= cannot be combined with constraint= "
+                         "(constrained ranked enumeration is not "
+                         "supported; post-filter instead)")
+    if spec is not None:
+        return _join_ranked(idx, cut, spec, count_only=count_only,
+                            first_n=first_n, max_partials=max_partials,
+                            max_results=max_results, deadline=deadline)
     stats = JoinStats()
 
     def _expired() -> bool:
@@ -210,6 +225,9 @@ def enumerate_paths_join(
             lens = np.argmax(tuples == t, axis=1).astype(np.int32)
             rows = tuples.copy()
             rows[np.arange(k + 1)[None, :] > lens[:, None]] = PAD
+            if constraint is not None:
+                keep = constraint.check_full(idx, rows, lens)
+                rows, lens = rows[keep], lens[keep]
             count += rows.shape[0]
             stats.results += rows.shape[0]
             if max_results is not None and count > max_results:
@@ -225,3 +243,168 @@ def enumerate_paths_join(
 
     return _finalize(idx, out_paths, out_lens, count, stats, exhausted=True,
                      canonical=True)
+
+
+# ---------------------------------------------------------------------------
+# ranked join (DESIGN.md §10)
+# ---------------------------------------------------------------------------
+
+def _half_costs(idx: LightweightIndex, rows: np.ndarray,
+                spec: "rank.RankSpec") -> np.ndarray:
+    """Per-row cost of a (possibly t-padded) join half: the edges up to
+    the first t (or the full width when t is absent), counted (int64) or
+    weight-accumulated left to right (float64) like every driver."""
+    t = idx.t
+    is_t = rows == t
+    has = is_t.any(axis=1)
+    hops = np.where(has, np.argmax(is_t, axis=1),
+                    rows.shape[1] - 1).astype(np.int64)
+    if not spec.is_weight:
+        return hops
+    keys, vals = rank.index_edge_table(idx, spec.weights)
+    n = np.int64(idx.n)
+    costs = np.zeros(rows.shape[0], dtype=np.float64)
+    for j in range(rows.shape[1] - 1):
+        act = hops > j
+        if not act.any():
+            break
+        q = rows[act, j].astype(np.int64) * n + rows[act, j + 1]
+        costs[act] = costs[act] + vals[np.searchsorted(keys, q)]
+    return costs
+
+
+def _join_ranked(idx: LightweightIndex, cut: int, spec: "rank.RankSpec",
+                 count_only: bool, first_n: Optional[int],
+                 max_partials: Optional[int], max_results: Optional[int],
+                 deadline: Optional[float]) -> EnumResult:
+    """Ranked Algorithm 6: the same halves and per-group join, ordered
+    group scheduling (DESIGN.md §10).
+
+    Each realized cut key gets ``lb = min cost_a(key) + min
+    cost_b(key)``, a lower bound on its cheapest joinable result; groups
+    run in ascending ``(lb, key)`` order.  After any group, every result
+    whose cost lies below the next group's bound (less
+    ``rank.weight_slack`` for floats) can no longer be preceded, so a
+    deadline or an early ``first_n`` emits exactly those, canonically
+    sorted.  A full run sorts everything, equal to the DFS drivers.
+    """
+    k, s, t = idx.k, idx.s, idx.t
+    stats = JoinStats()
+
+    def _expired() -> bool:
+        return deadline is not None and clock.expired(deadline)
+
+    if _expired():
+        return _finalize(idx, [], [], 0, stats, exhausted=False)
+
+    ra = _expand_to_width(idx, np.array([s], np.int32), 0, cut + 1, stats,
+                          max_partials)
+    stats.ra_size = ra.shape[0]
+    if ra.shape[0] == 0:
+        return _finalize(idx, [], [], 0, stats, exhausted=True)
+    if _expired():
+        return _finalize(idx, [], [], 0, stats, exhausted=False)
+
+    keys = np.unique(ra[:, cut])
+    rb = _expand_to_width(idx, keys.astype(np.int32), cut, k - cut + 1, stats,
+                          max_partials)
+    stats.rb_size = rb.shape[0]
+    if rb.shape[0] == 0:
+        return _finalize(idx, [], [], 0, stats, exhausted=True)
+
+    order_a = np.argsort(ra[:, cut], kind="stable")
+    order_b = np.argsort(rb[:, 0], kind="stable")
+    ra_s, rb_s = ra[order_a], rb[order_b]
+    ka, kb = ra_s[:, cut], rb_s[:, 0]
+    a_start = np.searchsorted(ka, keys, side="left")
+    a_end = np.searchsorted(ka, keys, side="right")
+    b_start = np.searchsorted(kb, keys, side="left")
+    b_end = np.searchsorted(kb, keys, side="right")
+
+    cost_a = _half_costs(idx, ra_s, spec)
+    cost_b = _half_costs(idx, rb_s, spec)
+    lb = np.full(keys.shape[0], np.inf, dtype=np.float64)
+    for ki in range(keys.shape[0]):
+        if b_end[ki] > b_start[ki]:
+            lb[ki] = cost_a[a_start[ki]:a_end[ki]].min() \
+                + cost_b[b_start[ki]:b_end[ki]].min()
+    group_order = np.lexsort((keys, lb))
+
+    acc_rows: List[np.ndarray] = []
+    acc_lens: List[np.ndarray] = []
+    acc_costs: List[np.ndarray] = []
+    total = 0
+
+    def _emit(threshold: float, exhausted: bool) -> EnumResult:
+        """Emit the accumulated results safely below ``threshold`` (the
+        least bound of the groups not run; inf once none remain), sorted
+        canonically and first_n-trimmed."""
+        if total == 0:
+            return _finalize(idx, [], [], 0, stats, exhausted=exhausted)
+        costs = np.concatenate(acc_costs)
+        if np.isfinite(threshold):
+            eff = threshold - rank.weight_slack(threshold) \
+                if spec.is_weight else threshold
+            safe = costs < eff
+        else:
+            safe = np.ones(costs.shape[0], dtype=bool)
+        n_emit = int(safe.sum())
+        if first_n is not None:
+            n_emit = min(n_emit, first_n)
+        stats.results = n_emit
+        if count_only:
+            return _finalize(idx, [], [], n_emit, stats,
+                             exhausted=exhausted)
+        rows = np.concatenate(acc_rows, axis=0)[safe]
+        lens = np.concatenate(acc_lens)[safe]
+        perm = rank.canonical_perm(rows, costs[safe])
+        rows, lens = rows[perm][:n_emit], lens[perm][:n_emit]
+        return _finalize(idx, [rows], [lens], n_emit, stats,
+                         exhausted=exhausted)
+
+    A_BLOCK = 256
+    for j in range(group_order.shape[0]):
+        ki = group_order[j]
+        if not np.isfinite(lb[ki]):
+            break                       # dead groups sort last
+        if _expired():
+            return _emit(float(lb[ki]), exhausted=False)
+        na, nb = a_end[ki] - a_start[ki], b_end[ki] - b_start[ki]
+        stats.pairs += int(na * nb)
+        A = ra_s[a_start[ki]:a_end[ki]]
+        B = rb_s[b_start[ki]:b_end[ki]]
+        bi = B[:, 1:]
+        bmask = bi != t
+        for a0 in range(0, na, A_BLOCK):
+            ai = A[a0:a0 + A_BLOCK, :cut]
+            clash = ((ai[:, None, :, None] == bi[None, :, None, :])
+                     & (ai != t)[:, None, :, None]
+                     & bmask[None, :, None, :]).any(axis=(2, 3))
+            ia, ib = np.nonzero(~clash)
+            if ia.size == 0:
+                continue
+            tuples = np.concatenate([ai[ia], B[ib]], axis=1)
+            lens = np.argmax(tuples == t, axis=1).astype(np.int32)
+            rows = tuples.copy()
+            rows[np.arange(k + 1)[None, :] > lens[:, None]] = PAD
+            total += rows.shape[0]
+            if max_results is not None and total > max_results:
+                raise EngineLimit(f"more than {max_results} results")
+            acc_rows.append(rows)
+            acc_lens.append(lens)
+            acc_costs.append(np.asarray(
+                rank.path_costs(idx, rows, lens, spec), dtype=np.float64))
+        nxt = float(lb[group_order[j + 1]]) \
+            if j + 1 < group_order.shape[0] else np.inf
+        # max(first_n, 1): first_n=0 still needs one result to exist
+        # before the cut counts as truncation (as in the DFS drivers,
+        # where an empty exhaustive run reports exhausted=True)
+        if first_n is not None and total >= max(first_n, 1) \
+                and np.isfinite(nxt):
+            costs = np.concatenate(acc_costs)
+            eff = nxt - rank.weight_slack(nxt) if spec.is_weight else nxt
+            if int((costs < eff).sum()) >= first_n:
+                return _emit(nxt, exhausted=False)
+
+    exhausted = not (first_n is not None and total >= max(first_n, 1))
+    return _emit(np.inf, exhausted=exhausted)

@@ -94,9 +94,15 @@ class PathEnum:
         """Run q(s,t,k) and return paths, plan, index and timings.
 
         ``deadline`` is an absolute ``clock.now()`` timestamp; ``first_n``
-        stops after exactly n results.  ``constraint`` and ``order``
-        belong to a later slice of the port and raise
-        NotImplementedError.
+        stops after exactly n results.  ``constraint`` is an Appendix-E
+        object (``core.constraints``; the walk then runs on the host) and
+        ``edge_mask`` filters edges before the index build.  ``order``
+        requests ranked (any-k) enumeration (DESIGN.md §10): ``"hops"``
+        ranks by hop count, ``"weight"`` by edge-weight sum (``weights``:
+        one non-negative float per graph edge), ties broken on the vertex
+        sequence, so every mode and backend returns the same ordered
+        list; ``first_n`` is then the top n and a deadline truncation a
+        rank-optimal prefix.
         """
         if k < 2:
             raise ValueError("paper assumes k >= 2")

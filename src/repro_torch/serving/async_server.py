@@ -31,10 +31,11 @@ so an in-flight batch stops at the next chunk boundary past its deadline
 order and reporting only, and results stay byte-identical to the sync
 engine.  Deadlines read the port's own ``core.clock``.
 
-Ranked requests (``order=``) belong to a later slice of the port: the
-engine raises NotImplementedError for them, and the server fails that
-micro-batch's futures (``stats.failed``), as it does for any engine
-error.
+Requests carrying ``order=`` run ranked (DESIGN.md §10), which turns an
+enforced deadline's truncation into a rank-optimal prefix: the engine
+emits in non-decreasing rank.  ``order="weight"`` requires the tenant's
+registry entry to carry ``edge_weights``; submissions against weightless
+tenants resolve to ``STATUS_REJECTED_NO_WEIGHTS``.
 """
 from __future__ import annotations
 

@@ -20,12 +20,15 @@ import torch
 
 from torch_serving_parity import (BACKENDS, assert_paths, assert_report,
                                   assert_responses, is_path,
-                                  random_requests, side, sides)
+                                  random_requests, ranked_registry,
+                                  ranked_sides, resp_paths, side, sides)
 
 import repro.core as rc
+import repro_torch.core as tc
 from repro.serving.hcpe import _merge_outputs as repro_merge
 from repro_torch.core.batch import BatchOutput, BatchTiming, CacheStats
-from repro_torch.serving import (STATUS_OK, STATUS_REJECTED_QUEUE_FULL,
+from repro_torch.serving import (STATUS_OK, STATUS_REJECTED_NO_WEIGHTS,
+                                 STATUS_REJECTED_QUEUE_FULL,
                                  STATUS_REJECTED_QUOTA,
                                  STATUS_REJECTED_SHUTDOWN, PathQueryRequest)
 from repro_torch.serving.hcpe import _merge_outputs
@@ -41,9 +44,11 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _both(backend, scenario):
-    """``scenario(side)`` on repro's side and on the port's."""
-    want_side, got_side = sides(backend)
+def _both(backend, scenario, monkeypatch=None):
+    """``scenario(side)`` on repro's side and on the port's (ranked
+    scenarios pass ``monkeypatch`` and take `ranked_sides`)."""
+    want_side, got_side = sides(backend) if monkeypatch is None \
+        else ranked_sides(backend, monkeypatch)
     return scenario(want_side), scenario(got_side)
 
 
@@ -440,29 +445,157 @@ def test_real_engine_outputs_carry_spans(backend):
 
 
 # ---------------------------------------------------------------------------
-# ranked requests: not ported yet (ROADMAP queue 1 item 5)
+# ranked requests (DESIGN.md §10), mirroring tests/test_ranked.py's
+# serving cases
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("backend", BACKENDS)
-def test_ranked_request_raises_sync_and_fails_async_group(backend):
-    """``order="hops"`` passes admission (it is a valid order) and
-    reaches the engine, which raises NotImplementedError naming item 5:
-    the sync server lets it raise, the async server fails the group's
-    futures and counts them under ``stats.failed``."""
-    S = side("port", backend)
-    g = S.core.erdos_renyi(40, 3.0, seed=5)
-    ranked = PathQueryRequest(uid=0, s=0, t=1, k=3, order="hops")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        S.server(g).serve([ranked])
+def test_ranked_request_raises_sync_and_fails_async_group(backend,
+                                                          monkeypatch):
+    """``order="hops"`` reaches the engine and is served: the sync server
+    and the async server answer it in rank order, as repro's do, and no
+    micro-batch fails (``stats.failed == 0``)."""
+    def run(S):
+        g = S.core.erdos_renyi(40, 3.0, seed=5)
+        Q = S.serving.PathQueryRequest
+        ranked = Q(uid=0, s=0, t=1, k=3, order="hops", count_only=False)
+        sync, _ = S.server(g).serve([ranked])
 
-    async def drive():
-        async with S.async_server(g, batch_window_ms=1.0) as srv:
-            with pytest.raises(NotImplementedError, match="item 5"):
-                await srv.submit(ranked)
-            ok = await srv.submit(PathQueryRequest(uid=1, s=0, t=2, k=3))
-            return ok, srv.metrics_snapshot()
+        async def drive():
+            async with S.async_server(g, batch_window_ms=1.0) as srv:
+                got = await srv.submit(ranked)
+                ok = await srv.submit(Q(uid=1, s=0, t=2, k=3))
+                return [got, ok], srv.metrics_snapshot()
+        return sync, *asyncio.run(drive())
 
-    ok, snap = asyncio.run(drive())
-    assert ok.status == STATUS_OK
-    assert (snap.serve.failed, snap.serve.completed) == (1, 1)
+    (want_sync, want, _), (got_sync, got, snap) = \
+        _both(backend, run, monkeypatch)
+    assert_responses(want_sync, got_sync)
+    assert_responses(want, got)
+    assert got_sync[0].status == got[0].status == STATUS_OK
+    assert resp_paths(got_sync[0]) == resp_paths(got[0])
+    assert (snap.serve.failed, snap.serve.completed) == (0, 2)
     assert snap.violations() == []
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sync_server_ranked_and_no_weights_rejection(backend, monkeypatch):
+    def run(S):
+        reg, g, s, t, k, w = ranked_registry(S, 600)
+        Q = S.serving.PathQueryRequest
+        reqs = [Q(uid=0, s=s, t=t, k=k, count_only=False,
+                  graph_id="weighted", order="weight"),
+                Q(uid=1, s=s, t=t, k=k, count_only=False,
+                  graph_id="plain", order="weight"),
+                Q(uid=2, s=s, t=t, k=k, count_only=False,
+                  graph_id="plain", order="hops"),
+                Q(uid=3, s=s, t=t, k=k, count_only=False, first_n=2,
+                  graph_id="weighted", order="weight")]
+        resps, rep = S.server(reg).serve(reqs)
+        return resps, rep, (g, s, t, k, w)
+
+    (want, want_rep, _), (got, got_rep, (g, s, t, k, w)) = \
+        _both(backend, run, monkeypatch)
+    assert_responses(want, got)
+    assert_report(want_rep, got_rep)
+    want_w = tc.oracle.enumerate_paths(g, s, t, k, order="weight",
+                                       weights=w)
+    assert got[0].status == STATUS_OK and resp_paths(got[0]) == want_w
+    # weight rank against a weightless tenant: a rejection, zero results
+    assert got[1].status == STATUS_REJECTED_NO_WEIGHTS and got[1].count == 0
+    assert got[2].status == STATUS_OK
+    assert resp_paths(got[2]) == tc.oracle.enumerate_paths(g, s, t, k,
+                                                           order="hops")
+    assert resp_paths(got[3]) == want_w[:2]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_sync_server_groups_by_order(backend, monkeypatch):
+    """Same (graph, count_only, first_n) but different order never share
+    an engine batch: each answers in its own order."""
+    def run(S):
+        reg, g, s, t, k, w = ranked_registry(S, 601)
+        Q = S.serving.PathQueryRequest
+        reqs = [Q(uid=0, s=s, t=t, k=k, count_only=False,
+                  graph_id="weighted", order="weight"),
+                Q(uid=1, s=s, t=t, k=k, count_only=False,
+                  graph_id="weighted", order="hops"),
+                Q(uid=2, s=s, t=t, k=k, count_only=False,
+                  graph_id="weighted")]
+        resps, rep = S.server(reg).serve(reqs)
+        return resps, rep, (g, s, t, k, w)
+
+    (want, want_rep, _), (got, got_rep, (g, s, t, k, w)) = \
+        _both(backend, run, monkeypatch)
+    assert_responses(want, got)
+    assert_report(want_rep, got_rep)
+    assert resp_paths(got[0]) == tc.oracle.enumerate_paths(
+        g, s, t, k, order="weight", weights=w)
+    assert resp_paths(got[1]) == tc.oracle.enumerate_paths(g, s, t, k,
+                                                           order="hops")
+    assert tc.oracle.paths_as_set(resp_paths(got[2])) == \
+        tc.oracle.paths_as_set(tc.oracle.enumerate_paths(g, s, t, k))
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_async_server_ranked_serving_and_admission(backend, monkeypatch):
+    def run(S):
+        reg, g, s, t, k, w = ranked_registry(S, 602)
+        Q = S.serving.PathQueryRequest
+
+        async def drive():
+            async with S.async_server(reg, batch_window_ms=1.0) as srv:
+                got = await asyncio.gather(
+                    srv.submit(Q(uid=0, s=s, t=t, k=k, count_only=False,
+                                 graph_id="weighted", order="weight")),
+                    srv.submit(Q(uid=1, s=s, t=t, k=k, count_only=False,
+                                 graph_id="plain", order="weight")),
+                    srv.submit(Q(uid=2, s=s, t=t, k=k, count_only=False,
+                                 first_n=2, graph_id="weighted",
+                                 order="weight")),
+                    srv.submit(Q(uid=3, s=s, t=t, k=k, count_only=False,
+                                 first_n=2, graph_id="plain",
+                                 order="hops")))
+                return list(got), srv.stats
+        return (*asyncio.run(drive()), (g, s, t, k, w))
+
+    (want, want_stats, _), (got, stats, (g, s, t, k, w)) = \
+        _both(backend, run, monkeypatch)
+    assert_responses(want, got)
+    want_w = tc.oracle.enumerate_paths(g, s, t, k, order="weight", weights=w)
+    assert got[0].status == STATUS_OK and resp_paths(got[0]) == want_w
+    assert got[1].status == STATUS_REJECTED_NO_WEIGHTS and got[1].count == 0
+    assert stats.rejected_no_weights == want_stats.rejected_no_weights == 1
+    assert stats.failed == 0
+    # EDF front-end under order: first_n is the top n, not some n
+    assert resp_paths(got[2]) == want_w[:2]
+    assert resp_paths(got[3]) == tc.oracle.enumerate_paths(
+        g, s, t, k, order="hops")[:2]
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_async_weights_dropped_mid_flight_reject_the_group(backend,
+                                                          monkeypatch):
+    """A tenant re-registered without weights between admission and
+    dispatch: the accepted weight-ranked group settles as
+    ``rejected_no_weights`` under ``rejected_mid_flight``."""
+    def run(S):
+        reg, g, s, t, k, w = ranked_registry(S, 603)
+        Q = S.serving.PathQueryRequest
+
+        async def drive():
+            async with S.async_server(reg, batch_window_ms=30.0) as srv:
+                fut = asyncio.ensure_future(srv.submit(
+                    Q(uid=0, s=s, t=t, k=k, graph_id="weighted",
+                      order="weight")))
+                await asyncio.sleep(0)
+                reg.register("weighted", g)          # weights dropped
+                resp = await fut
+                return [resp], srv.stats
+        return asyncio.run(drive())
+
+    (want, want_stats), (got, stats) = _both(backend, run, monkeypatch)
+    assert_responses(want, got)
+    assert got[0].status == STATUS_REJECTED_NO_WEIGHTS
+    assert stats.rejected_mid_flight == want_stats.rejected_mid_flight == 1
+    assert stats.failed == 0

@@ -214,11 +214,46 @@ def test_batched_index_distances_equal_repro(name, block):
         np.testing.assert_array_equal(wt, gt)
 
 
-def test_ranked_batches_are_a_later_slice():
-    _jg, tg = _graphs()
+@pytest.mark.parametrize("order", ["hops", "weight"])
+def test_ranked_batches_are_a_later_slice(order):
+    """Ranked batches equal repro's item by item (the slice that ports
+    them has landed) and keep construction sharing only: no shared walk,
+    no fused launch, whatever the knobs say.  A bad ``order`` or
+    ``fused`` still raises."""
+    jg, tg = _graphs()
+    w = np.random.default_rng(0).integers(0, 4, size=tg.m).astype(float)
+    weights = w if order == "weight" else None
+    for first_n in (None, 3):
+        want = rc.BatchPathEnum(backend="host", chunk_size=CHUNK).run(
+            jg, QUERIES, count_only=False, first_n=first_n, order=order,
+            weights=weights)
+        host = tc.BatchPathEnum(device="cpu", backend="host",
+                                chunk_size=CHUNK).run(
+            tg, QUERIES, count_only=False, first_n=first_n, order=order,
+            weights=weights)
+        dev = tc.BatchPathEnum(device="cpu", chunk_size=CHUNK,
+                               sharing="auto", fused="auto").run(
+            tg, QUERIES, count_only=False, first_n=first_n, order=order,
+            weights=weights)
+        for out in (host, dev):
+            assert (out.shared_queries, out.sharing_groups,
+                    out.fused_queries, out.fused_dispatches) == (0, 0, 0, 0)
+            assert out.distinct_queries == want.distinct_queries
+            assert dataclasses.asdict(out.cache_stats) == \
+                dataclasses.asdict(want.cache_stats)
+        for a, b, q in zip(want.items, host.items, QUERIES):
+            _assert_result(a.result, b.result, f"host {q} n={first_n}")
+        solo = tc.PathEnum(device="cpu", chunk_size=CHUNK)
+        for a, b, (s, t, k) in zip(want.items, dev.items, QUERIES):
+            # the device leg equals a solo device query (whose hop
+            # buckets test_torch_ranked.py holds against repro's)
+            _assert_result(solo.query(tg, s, t, k, first_n=first_n,
+                                      order=order,
+                                      weights=weights).result, b.result,
+                           f"device {(s, t, k)} n={first_n}")
+            assert b.result.as_tuples() == a.result.as_tuples()
+            assert b.deduplicated == a.deduplicated
     tb = tc.BatchPathEnum(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tb.run(tg, QUERIES[:2], order="hops")
     with pytest.raises(ValueError):
         tb.run(tg, QUERIES[:2], order="cost")
     with pytest.raises(ValueError):

@@ -1013,3 +1013,99 @@ def test_cuda_hcpe_servers_equal_cpu_and_survive_mutation(cuda):
     for name in ("frontier_fused_masks", "frontier_deque_round",
                  "frontier_hop"):
         assert card_out[2][name] > 0, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first_n", [None, 50])
+def test_cuda_ranked_hops_equals_host_heap(cuda, first_n):
+    """``order="hops"`` on the card (the bucketed driver on K1's hop
+    entry) returns the host heap's rows in the host heap's order on a
+    mid-sized graph; ``order="weight"`` resolves to the heap and equals
+    the CPU port's costs bit for bit."""
+    from repro_torch.core import rank
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    g = erdos_renyi(3000, 8.0, seed=4)
+    w = np.random.default_rng(4).integers(0, 4, size=g.m).astype(np.float64)
+    checked = 0
+    for s, t in ((0, 2999), (5, 1700), (11, 42)):
+        idx = build_index_device(g, s, t, 5, device=cuda)
+        cpu = build_index(g, s, t, 5, device="cpu")
+        want = enumerate_paths_idx(cpu, backend="host", device="cpu",
+                                   order="hops", first_n=first_n)
+        reset_launch_counts()
+        got = enumerate_paths_idx(idx, backend="device", device=cuda,
+                                  order="hops", first_n=first_n)
+        hops = launch_counts()["frontier_hop"]
+        assert got.as_tuples() == want.as_tuples(), (s, t)
+        assert (got.count, got.exhausted) == (want.count, want.exhausted)
+        if got.count:
+            assert hops > 0, (s, t)
+            checked += 1
+        assert launch_counts()["frontier_deque_round"] == 0
+        wt = enumerate_paths_idx(idx, backend="device", device=cuda,
+                                 order="weight", weights=w, first_n=first_n)
+        wc = enumerate_paths_idx(cpu, backend="host", device="cpu",
+                                 order="weight", weights=w, first_n=first_n)
+        assert wt.as_tuples() == wc.as_tuples()
+        spec = rank.make_rank_spec("weight", w)
+        assert rank.path_costs(idx, wt.paths, wt.lengths, spec).tobytes() \
+            == rank.path_costs(cpu, wc.paths, wc.lengths, spec).tobytes()
+    assert checked > 0
+
+
+@pytest.mark.cuda
+def test_cuda_ranked_batch_launches_k1_not_k5(cuda):
+    """A ranked batch on the card takes the solo ranked drivers: K1's hop
+    entry launches, K5 (fused) and K2 (resident deque) never do, and the
+    answers equal the CPU port's."""
+    from repro_torch.core.batch import BatchPathEnum
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    g = erdos_renyi(2000, 8.0, seed=6)
+    rng = np.random.default_rng(6)
+    qs = [(int(a), int(b), 5) for a, b in
+          (rng.choice(g.n, 2, replace=False) for _ in range(6))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        reset_launch_counts()
+        out = BatchPathEnum(device=dev, fused="auto").run(
+            g, qs, count_only=False, order="hops", first_n=20, mode="dfs")
+        outs[str(dev)] = ([it.result.as_tuples() for it in out.items],
+                          out.fused_queries, launch_counts())
+    cpu, card = outs["cpu"], outs[str(cuda)]
+    assert card[0] == cpu[0] and any(card[0])
+    assert card[1] == 0
+    assert card[2]["frontier_hop"] > 0
+    assert card[2]["frontier_fused_masks"] == 0
+    assert card[2]["frontier_deque_round"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_constrained_query_equals_cpu(cuda):
+    """A constrained query on an index built on the card (the walk runs
+    on the host, as in ``repro``) answers exactly as the CPU port, in dfs
+    and join mode, with the Fig.-6 counters."""
+    from repro_torch.core import constraints
+    g = erdos_renyi(1500, 6.0, seed=8)
+    rng = np.random.default_rng(8)
+    w = rng.uniform(0.0, 3.0, size=g.m)
+    labels = rng.integers(0, 2, size=g.m)
+    makers = [
+        lambda: constraints.AccumulativeValue(w, accept=lambda b: b <= 6.0,
+                                              monotone_upper=6.0),
+        lambda: constraints.ActionSequence(np.array([[0, 1], [-1, 1]]),
+                                           labels, 0, np.array([True, True])),
+    ]
+    found = 0
+    for s, t in ((0, 1499), (3, 700)):
+        for make in makers:
+            for mode in ("dfs", "join"):
+                outs = []
+                for dev in ("cpu", cuda):
+                    pe = PathEnum(device=dev, use_device_index=dev != "cpu")
+                    r = pe.query(g, s, t, 5, mode=mode, cut=2,
+                                 constraint=make()).result
+                    outs.append((r.as_tuples(), r.count, r.exhausted,
+                                 dataclasses.asdict(r.stats)))
+                assert outs[0] == outs[1], (s, t, mode)
+                found += outs[0][1] > 0
+    assert found > 0

@@ -8,9 +8,10 @@ deadline consumer (the host and device IDX-DFS drivers, the join, the
 batch engine's shared walk and fused launch, the async server's enforced
 deadlines) must still truncate exactly when the deadline has passed on
 that clock.  A consumer reading ``time.perf_counter()`` directly would
-see every deadline 1e6 s away and fail at once.  Ranked drivers are not
-ported yet (ROADMAP queue 1 item 5).  Untruncated results are held
-against ``repro``'s.
+see every deadline 1e6 s away and fail at once.  The ranked drivers
+(heap, hop buckets, ranked join) must also return a rank-optimal prefix
+when a deadline cuts them mid-run.  Untruncated results are held against
+``repro``'s.
 """
 import asyncio
 import time
@@ -161,3 +162,105 @@ def test_async_server_expired_deadline_truncates_under_skew(skewed_clock,
     assert r.status == STATUS_OK
     assert not r.exhausted and r.count == 0
     assert r.slo_met is False
+
+
+# ---------------------------------------------------------------------------
+# ranked drivers (DESIGN.md §10): a deadline cut is a rank-optimal prefix
+# ---------------------------------------------------------------------------
+
+def _ranked_runners(idx, w):
+    """The port's ranked drivers as (label, fn(order, deadline))."""
+    def weights(order):
+        return w if order == "weight" else None
+    return [
+        ("heap", lambda order, dl: tc.enumerate_paths_idx(
+            idx, backend="host", device="cpu", order=order,
+            weights=weights(order), deadline=dl)),
+        ("device", lambda order, dl: tc.enumerate_paths_idx(
+            idx, backend="device", device="cpu", order=order,
+            weights=weights(order), deadline=dl, chunk_size=4)),
+        ("join", lambda order, dl: tc.enumerate_paths_join(
+            idx, cut=max(1, idx.k // 2), order=order,
+            weights=weights(order), deadline=dl)),
+    ]
+
+
+@pytest.mark.parametrize("order", ["hops", "weight"])
+def test_ranked_drivers_truncate_on_skewed_clock(skewed_clock, order):
+    """An expired deadline on the skewed clock returns an empty,
+    unexhausted result; a live one returns repro's full ranked run."""
+    g, idx, full = _case(seed=11, n=40, deg=4.0, k=5)
+    w = np.random.default_rng(11).integers(0, 4, size=g.m).astype(float)
+    jidx = rc.build_index(rc.erdos_renyi(40, 4.0, seed=11), idx.s, idx.t,
+                          idx.k)
+    want = rc.enumerate_paths_idx(jidx, order=order,
+                                  weights=w if order == "weight" else None)
+    for label, run in _ranked_runners(idx, w):
+        res = run(order, clock.now() - 1.0)
+        assert res.count == 0 and not res.exhausted, label
+        assert res.paths.shape[0] == 0, label
+        res = run(order, clock.now() + 3600.0)
+        assert res.exhausted and res.as_tuples() == want.as_tuples(), label
+
+
+@pytest.mark.parametrize("order", ["hops", "weight"])
+def test_ranked_mid_run_deadline_is_rank_optimal_prefix(monkeypatch, order):
+    """A clock that ticks once per read expires the deadline part way
+    through each ranked driver, at a point that does not depend on the
+    host's speed: whatever was emitted is exactly the best-ranked prefix
+    of repro's sequence, and some cut lands strictly inside it."""
+    g, idx, _full = _case(seed=11, n=40, deg=4.0, k=5)
+    w = np.random.default_rng(11).integers(0, 4, size=g.m).astype(float)
+    jidx = rc.build_index(rc.erdos_renyi(40, 4.0, seed=11), idx.s, idx.t,
+                          idx.k)
+    want = rc.enumerate_paths_idx(
+        jidx, order=order,
+        weights=w if order == "weight" else None).as_tuples()
+    tick = [0.0]
+
+    def ticking():
+        tick[0] += 1.0
+        return tick[0]
+    monkeypatch.setattr(clock, "_source", ticking)
+    for label, run in _ranked_runners(idx, w):
+        inside = 0
+        for reads in (1, 2, 3, 5, 8, 13, 40, 200):
+            res = run(order, clock.now() + reads)
+            seq = res.as_tuples()
+            assert seq == want[:len(seq)], (label, reads)
+            if res.exhausted:
+                assert len(seq) == len(want), (label, reads)
+            elif 0 < len(seq) < len(want):
+                inside += 1
+        assert inside > 0, label
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_async_ranked_expired_deadline_truncates_under_skew(skewed_clock,
+                                                            backend):
+    """Enforced 0 ms deadlines on ranked requests: empty, unexhausted
+    responses, equal to repro's."""
+    def run(S):
+        g = S.core.erdos_renyi(40, 3.0, seed=5)
+        w = np.random.default_rng(5).integers(0, 4, size=g.m).astype(float)
+        reg = S.serving.GraphRegistry()
+        reg.register("w", g, edge_weights=w)
+        reqs = [S.serving.PathQueryRequest(uid=i, s=0, t=5, k=4,
+                                           graph_id="w", order=order,
+                                           count_only=False,
+                                           deadline_ms=0.0)
+                for i, order in enumerate(("hops", "weight"))]
+
+        async def drive():
+            async with S.async_server(reg, batch_window_ms=20.0,
+                                      enforce_deadlines=True) as srv:
+                return await srv.serve(reqs)
+        return asyncio.run(drive())
+
+    want = run(side("repro"))
+    got = run(side("port", backend))
+    assert_responses(want, got)
+    for r in got:
+        assert r.status == STATUS_OK
+        assert not r.exhausted and r.count == 0
+        assert r.slo_met is False

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 import repro.core as rc
+import repro_torch.core as tc
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.frontier_expand import frontier_fused_masks as jax_fused
@@ -262,3 +263,22 @@ def test_fused_driver_passes_member_table_rows(monkeypatch):
     with pytest.raises(ValueError, match="member_table"):
         orig(*args, max_deg=kw["max_deg"],
              member_table=kw["member_table"][:-1])
+
+
+def test_batch_fused_ranked_batches_never_fuse():
+    """Ranked batches keep the solo path on the device backend: no fused
+    dispatch, every item equal to repro's in rank order."""
+    jg = rc.erdos_renyi(60, 4.0, seed=3)
+    tg = tc.erdos_renyi(60, 4.0, seed=3)
+    qs = [(0, 59, 4), (1, 58, 4), (2, 57, 5), (3, 56, 4)]
+    want = rc.BatchPathEnum(backend="host").run(
+        jg, qs, count_only=False, order="hops", first_n=3)
+    out = tc.BatchPathEnum(device="cpu", fused="auto").run(
+        tg, qs, count_only=False, order="hops", first_n=3)
+    assert out.fused_queries == out.fused_dispatches == 0
+    assert not any(i.fused for i in out.items)
+    assert any(i.result.count for i in out.items)
+    for a, b in zip(want.items, out.items):
+        assert b.result.as_tuples() == a.result.as_tuples()
+        assert (b.result.count, b.result.exhausted) == \
+            (a.result.count, a.result.exhausted)

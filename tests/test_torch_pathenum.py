@@ -191,15 +191,48 @@ def test_quickstart_join_runs_device_dp():
     _assert_dp(dp, auto.plan.dp, "auto")
 
 
-def test_ranked_and_constrained_wait_for_their_slice():
-    tg = tc.erdos_renyi(40, 4.0, seed=7)
-    pe = tc.PathEnum(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pe.query(tg, 0, 39, 4, mode="dfs", order="hops")
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        pe.query(tg, 0, 39, 4, mode="join", cut=2, constraint=object())
+@pytest.mark.parametrize("backend", ["host", "device"])
+@pytest.mark.parametrize("mode", ["dfs", "join"])
+def test_ranked_and_constrained_wait_for_their_slice(mode, backend):
+    """Ranked and constrained queries through ``PathEnum.query`` equal
+    repro's (the slice that ports them has landed): ``order="hops"`` and
+    ``"weight"``, with and without ``first_n``, and an
+    ``AccumulativeValue`` constraint; an unknown order still raises."""
+    from repro.core import constraints as jcons
+    from repro.core import enumerate as jen
+    from repro_torch.core import constraints as tcons
+    jg, tg = _graphs("er")
+    w = np.random.default_rng(7).integers(0, 4, size=tg.m).astype(float)
+    pe = tc.PathEnum(backend=backend, device="cpu")
+    for order in ("hops", "weight"):
+        weights = w if order == "weight" else None
+        for first_n in (None, 5):
+            got = pe.query(tg, 0, 39, 4, mode=mode, cut=2, order=order,
+                           weights=weights, first_n=first_n)
+            if backend == "device" and mode == "dfs" and order == "hops":
+                # repro's device leg: its bucketed driver on its host step
+                jidx = rc.build_index(jg, 0, 39, 4)
+                want = jen._drive_ranked_buckets(
+                    jidx, jen._host_step(jidx, None),
+                    chunk_size=16384, count_only=False, first_n=first_n,
+                    max_results=None, deadline=None)
+            else:
+                want = rc.PathEnum(backend="host").query(
+                    jg, 0, 39, 4, mode=mode, cut=2, order=order,
+                    weights=weights, first_n=first_n).result
+            _assert_result(want, got.result, f"{order} n={first_n}")
+            assert got.result.as_tuples() == rc.oracle.enumerate_paths(
+                jg, 0, 39, 4, order=order, weights=weights)[:first_n]
+    want = rc.PathEnum(backend="host").query(
+        jg, 0, 39, 4, mode=mode, cut=2,
+        constraint=jcons.AccumulativeValue(w, accept=lambda b: b >= 4.0))
+    got = pe.query(tg, 0, 39, 4, mode=mode, cut=2,
+                   constraint=tcons.AccumulativeValue(
+                       w, accept=lambda b: b >= 4.0))
+    _assert_result(want.result, got.result, "constraint")
+    assert 0 < got.result.count
     with pytest.raises(ValueError):
-        pe.query(tg, 0, 39, 4, mode="dfs", order="bogus")
+        pe.query(tg, 0, 39, 4, mode=mode, order="bogus")
 
 
 def test_calibrate_tau_runs_the_paper_procedure():

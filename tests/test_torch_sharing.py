@@ -163,3 +163,29 @@ def test_detect_groups_equals_repro():
             b = tsharing.detect_groups(keys, kinds=kinds, max_size=max_size)
             assert [dataclasses.asdict(x) for x in a] == \
                 [dataclasses.asdict(x) for x in b]
+
+
+@pytest.mark.parametrize("order", ["hops", "weight"])
+def test_ranked_batches_skip_shared_walk(order):
+    """Rank-order emission is per query and a shared walk cannot
+    reproduce it, so ranked batches enumerate solo (construction sharing
+    only), byte-equal with sharing on or off, and equal to repro's."""
+    jg, tg = _graphs(10, mean_deg=5.0)
+    w = np.random.default_rng(0).integers(0, 4, size=tg.m).astype(np.float64)
+    weights = w if order == "weight" else None
+    qs = SHAPES["shared_s"]
+    want = rc.BatchPathEnum(backend="host", sharing="auto").run(
+        jg, qs, count_only=False, order=order, weights=weights)
+    for backend in ("host", "device"):
+        on = tc.BatchPathEnum(backend=backend, sharing="auto",
+                              device="cpu").run(
+            tg, qs, count_only=False, order=order, weights=weights)
+        off = tc.BatchPathEnum(backend=backend, sharing="off",
+                               device="cpu").run(
+            tg, qs, count_only=False, order=order, weights=weights)
+        assert on.shared_queries == off.shared_queries == 0
+        for q, a, b, c in zip(qs, want.items, on.items, off.items):
+            _assert_result(c.result, b.result, f"{backend} {order} {q}")
+            assert b.result.as_tuples() == a.result.as_tuples(), q
+            if backend == "host" or order == "weight":
+                _assert_result(a.result, b.result, f"{order} {q} repro")

@@ -9,7 +9,9 @@ versions of K1, K2 and K5), then holds the two outcomes equal.  All
 results are integers, so equality is exact.  Times are not compared:
 every time field is masked, and the scenarios choose deadlines whose
 SLO outcome does not depend on the host's speed (0 ms, which is always
-missed, or a minute, which is always met).
+missed, or a minute, which is always met).  Ranked scenarios (DESIGN.md
+§10) register a tenant with tie-heavy ``edge_weights`` beside one
+without (``ranked_registry``), and compare paths in order.
 """
 import dataclasses
 from types import SimpleNamespace
@@ -37,10 +39,11 @@ TIME_FIELDS = ("captured_at", "queue_ms_total", "service_ms_total",
 def side(pkg: str, backend: str = "host") -> SimpleNamespace:
     """One package's serving surface under one backend: ``core``,
     ``serving``, ``engine(**kw)``, ``server(g, **kw)`` and
-    ``async_server(g, **kw)``.  ``repro`` always runs its host backend;
-    the port runs ``backend`` on the CPU."""
+    ``async_server(g, **kw)``.  ``repro`` runs its host backend (its
+    device backend only through `ranked_sides`); the port runs
+    ``backend`` on the CPU."""
     if pkg == "repro":
-        core, serving, extra = rc, rs, {"backend": "host"}
+        core, serving, extra = rc, rs, {"backend": backend}
     else:
         core, serving = tc, ts
         extra = {"backend": backend, "device": "cpu"}
@@ -61,6 +64,21 @@ def side(pkg: str, backend: str = "host") -> SimpleNamespace:
 def sides(backend: str):
     """``(repro's side, the port's side)`` for one port backend."""
     return side("repro"), side("port", backend)
+
+
+def ranked_sides(backend: str, monkeypatch):
+    """``sides`` for ranked scenarios.  On the device backend an
+    ``order="hops"`` query drains hop buckets, whose ``chunks`` differ
+    from the host heap's, so ``repro`` runs its device backend too, with
+    its device step swapped for its host step (which ``repro`` pins bit
+    identical) and its resident deque off: no JAX compile runs."""
+    if backend == "host":
+        return sides(backend)
+    from repro.core import enumerate as jen
+    monkeypatch.setattr(jen, "_device_step",
+                        lambda idx: jen._host_step(idx, None))
+    monkeypatch.setenv("REPRO_DEVICE_DEQUE", "off")
+    return side("repro", backend), side("port", backend)
 
 
 def assert_paths(want, got, tag=""):
@@ -139,3 +157,39 @@ def is_path(g, row, s, t, k) -> bool:
         return False
     return all(v in set(g.neighbors(u).tolist())
                for u, v in zip(verts, verts[1:]))
+
+
+def ranked_case(S, seed):
+    """A random digraph (the same edges in either package), a query on
+    it with results, and tie-heavy integer edge weights: ``(g, s, t, k,
+    w)``, as tests/test_ranked.py draws them."""
+    rng = np.random.default_rng(seed)
+    while True:
+        n = int(rng.integers(8, 26))
+        m = int(n * float(rng.choice([2.0, 3.5])))
+        edges = rng.integers(0, n, size=(m, 2))
+        g = S.core.from_edges(n, edges)
+        s, t = map(int, rng.choice(n, 2, replace=False))
+        k = int(rng.integers(3, 7))
+        w = rng.integers(0, 4, size=g.m).astype(np.float64)
+        if len(rc.oracle.enumerate_paths(rc.from_edges(n, edges), s, t,
+                                         k)) >= 3:
+            return g, s, t, k, w
+
+
+def ranked_registry(S, seed):
+    """``ranked_case`` behind a registry with two tenants on the same
+    graph: ``"weighted"`` (with ``edge_weights``) and ``"plain"``
+    (without).  Returns ``(registry, g, s, t, k, w)``."""
+    g, s, t, k, w = ranked_case(S, seed)
+    reg = S.serving.GraphRegistry()
+    reg.register("weighted", g, edge_weights=w)
+    reg.register("plain", g)
+    return reg, g, s, t, k, w
+
+
+def resp_paths(resp):
+    """A response's paths as vertex tuples, in order."""
+    if resp.paths is None:
+        return []
+    return [tuple(int(x) for x in row if x >= 0) for row in resp.paths]
