@@ -91,12 +91,35 @@ Phases, one JSON line each (``{"phase": ...}``):
    Each line names the backend its queries resolved to.  Then
    ``ranked_check``: K1's hop launched, K5, K2 and the attention kernels
    never.
-9. ``kernel``  — the attention kernels K6 and K7 against their plain
+9. ``mesh``    — the mesh engine (``repro_torch.distributed``) over the
+   large graph at k = 8 on the batch phase's picks.  ``mesh_1``: a 1 x 1
+   NCCL ``DeviceMesh`` in this process (``compat.make_mesh`` on a free
+   local port, the process group destroyed afterwards):
+   ``DistributedPathEnum.query_batch_stats``, its distances equal to
+   ``batched_index_distances``, its walk-count tables within rtol 1e-5
+   of ``repro``'s recurrence written out in float64 (one sparse product
+   a level; float32 atomics sum larger counts in any order) and at or
+   above the host ``walk_count_dp`` of each pick's index (which drops
+   the edges into s and out of t that the mesh DP keeps: the line says
+   how many picks it counts more walks for); then ``enumerate_batch``
+   counting and with ``first_n=1000`` on one default engine, equal to
+   the batch phase's checked results (lines ``mesh_1_stats``,
+   ``mesh_1``: stage seconds, ``BatchTiming``, edge bytes a rank, peak
+   ``max_memory_allocated``, all-reduce calls and bytes, launches).
+   ``mesh_gloo2``: two spawned processes on the one card, a 1 x 2 gloo
+   mesh (the edges split in two; gloo reduces on the host, ``"wire":
+   "host"``), loading the graph's arrays from a temporary file this
+   script writes; their tables equal ``mesh_1``'s (distances exactly,
+   DP within rtol 1e-5).  Then ``mesh_check``: K5 launched in
+   ``mesh_1``, K3, K4, K6 and K7 never.
+10. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
    causal, windowed (2048), and with Lq < Lk, each in float32 (the
    split-TF32 kernel) and bfloat16 (the wgmma kernel); K7
    over a long cache (B=16, S=32768, lengths from the seed in [S/2, S])
-   in float32 and bfloat16.  Each within its tolerance (2e-5 in float32,
+   in float32 and bfloat16; then at phi3-vision's head dim 96 (32 query
+   and 32 KV heads): K6 at L = 4096, causal, and K7 over a 32768-long
+   cache of 4 rows, both dtypes.  Each within its tolerance (2e-5 in float32,
    2e-2 in bfloat16: the online softmax sums in another order; bfloat16
    also within 2^-4 of |want| + the rms of want's row, element by
    element, ``scaled_err``, and on that measure no further from the
@@ -108,7 +131,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    bound (bfloat16 operations over 989 TFLOP/s; K6 in float32 three TF32
    products per operation over 495 TFLOP/s, with ``simt_bound_ms``, its
    operations over the 67 TFLOP/s of float32 FMAs, beside it).
-10. ``lm``      — the LM serving path at full width and depth:
+11. ``lm``      — the LM serving path at full width and depth:
    ``internlm2_1p8b`` (24 layers, d_model 2048, 16 query and 8 KV heads
    of 128, vocab 92544) in float32 with random weights from the seed.
    ``make_prefill`` on 2 prompts of 2048 tokens (K6 in every layer), then
@@ -116,7 +139,7 @@ Phases, one JSON line each (``{"phase": ...}``):
    requests (prompts of 8–64 tokens, 32 new tokens each; K7 in every
    layer of every step).  Then K6 and K7 are held against their plain
    versions at the shapes this phase gave them (``kernel`` lines).
-11. ``lm_check`` — against the port's own plain path on the card, TF32
+12. ``lm_check`` — against the port's own plain path on the card, TF32
    off: the prefill's last logits against ``forward(impl="xla")``; four
    served requests teacher-forced through ``decode_step`` (K7), every
    position's logits against ``forward(impl="xla")`` over the same
@@ -124,19 +147,20 @@ Phases, one JSON line each (``{"phase": ...}``):
    plain top-two margin exceeds the tolerance (2e-3 on logits of order
    1: float32 sums in other orders through 24 layers stay far below it,
    a bfloat16 computation would not).
-12. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
+13. ``lm_bf16`` — the same weights cast to bfloat16 (3.78 GB) with a
    bfloat16 cache: the same prefill and the same 16 requests, with its
    own ``lm_bf16_trace`` and K6/K7 ``kernel`` lines at its shapes (K6 on
    the wgmma kernel, K7 in bfloat16).
-13. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
+14. ``lm_bf16_check`` — the bfloat16 prefill's last logits from the
    kernels and from ``forward(impl="xla")`` in bfloat16, each against
    the float32 plain path on the same bfloat16-rounded weights: the
    kernels' error may be at most 1.5 times the plain path's.  Both
    errors are printed, and K6's share of the prefill.
 
 The launch counts are set to 0 just before phase 3 and read just after
-phase 5, and set to 0 again just before phase 7, phase 8, phase 10 and
-phase 12, each read just after its phase.  K5 is held against its plain
+phase 5, and set to 0 again just before phase 7, phase 8, the
+``mesh_1`` leg of phase 9, phase 11 and phase 13, each read just after
+its phase or leg.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -182,6 +206,11 @@ PATHENUM_KERNELS = ("frontier_masks", "frontier_hop", "frontier_fused_masks",
                     "bfs_dense")
 LM_KERNELS = ("flash_attention", "decode_attention")
 LM_BF16_KERNELS = ("flash_attention_sm90", "decode_attention")
+# kernels the mesh phase must not launch: the DP and BFS run as torch
+# scatters over the edge list, and no attention runs
+MESH_KERNELS_OFF = ("counting_spmm", "minplus_spmv", "bfs_dense",
+                    "flash_attention", "flash_attention_sm90",
+                    "decode_attention")
 # repro's own kernel tolerances (tests/test_kernels.py): the online
 # softmax sums in another order than one softmax over the row
 ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 2e-2}
@@ -1791,6 +1820,316 @@ def ranked_phase(torch, np, tc, en, kernels, serving, g, g_small, picks,
 
 
 # ---------------------------------------------------------------------------
+# the mesh engine (repro_torch.distributed)
+# ---------------------------------------------------------------------------
+
+def dp_rel_err(np, got, want) -> float:
+    """Largest |got - want| / |want| over entries where either is not 0
+    (0 when every entry is equal)."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    diff = np.abs(got - want)
+    nz = diff > 0
+    return float((diff[nz] / np.abs(want[nz])).max()) if nz.any() else 0.0
+
+
+def mesh_one(torch, tc, kernels, compat, dist_mod, g, qs, dev):
+    """``mesh_1``: a 1 x 1 NCCL mesh in this process; the stats and the
+    two ``enumerate_batch`` legs on one default engine.  Returns the
+    stats, the two outputs and the launches of the whole leg (counted
+    from 0 just before it)."""
+    import torch.distributed as tdist
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    mesh = compat.make_mesh((1, 1), ("data", "model"), device=dev)
+    init_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        dpe = dist_mod.DistributedPathEnum(mesh, g, K_LARGE, device=dev)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stats = dpe.query_batch_stats(qs)
+        stats_s = time.perf_counter() - t0
+        comm = dpe.comm_counts()
+        emit({"phase": "mesh", "leg": "mesh_1_stats", "mesh": [1, 1],
+              "backend": dpe.model.backend, "wire": dpe.model.kind,
+              "queries": len(qs), "k": K_LARGE, "init_s": init_s,
+              "shard_s": shard_s, **dpe.last_timing, "stats_s": stats_s,
+              "edge_bytes_per_rank": dpe.edge_bytes(),
+              "memory_allocated_before": mem0,
+              "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+              **comm})
+        engine = tc.BatchPathEnum(device=dev)
+        outs = {}
+        for leg, kw in (("count_only", dict(count_only=True)),
+                        ("first_n", dict(count_only=False, first_n=1000))):
+            before = kernels.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dpe.enumerate_batch(qs, engine=engine, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            now = kernels.launch_counts()
+            tm = out.timing
+            emit({"phase": "mesh", "leg": "mesh_1", "enumerate": leg,
+                  "queries": len(qs), "wall_s": wall,
+                  "bfs_s": dpe.last_timing["bfs_s"],
+                  "dp_s": dpe.last_timing["dp_s"],
+                  "distance_s": tm.distance_seconds,
+                  "index_s": tm.index_seconds,
+                  "optimize_s": tm.optimize_seconds,
+                  "enumerate_s": tm.enumerate_seconds,
+                  "total_s": tm.total_seconds,
+                  "queries_per_s": out.throughput_qps,
+                  "fused_queries": out.fused_queries,
+                  "fused_dispatches": out.fused_dispatches,
+                  "cache_hits": out.cache_stats.hits,
+                  "cache_misses": out.cache_stats.misses,
+                  "results": out.total_results,
+                  "max_memory_allocated":
+                      torch.cuda.max_memory_allocated(dev),
+                  **{f"total_{key}": v for key, v in
+                     dpe.comm_counts().items()},
+                  "launches": {n: now[n] - before[n] for n in
+                               ("frontier_fused_masks",
+                                "frontier_deque_round", "frontier_hop")}})
+            outs[leg] = out
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+    finally:
+        tdist.destroy_process_group()
+    return stats, outs, launches, comm
+
+
+def plain_mesh_dp(torch, np, g, k, ds, dt, dev):
+    """``repro``'s mesh walk-count recurrence (every edge, level masks
+    from the distances, the (t, t) self-loop) in float64 on the card,
+    one sparse product over the graph's CSR per level for all queries:
+    a plain version of the same arithmetic, independent of the engine's
+    per-edge scatters.  Returns host ``(q_prefix, q_suffix, totals)``."""
+    n = g.n
+
+    def csr(indptr, indices):
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(indptr.astype(np.int64)).to(dev),
+            torch.from_numpy(indices.astype(np.int64)).to(dev),
+            torch.ones(indices.shape[0], dtype=torch.float64, device=dev),
+            size=(n, n), check_invariants=False)
+    fwd = csr(g.indptr, g.indices)      # [u, v] = 1 for each edge (u, v)
+    rev = csr(g.rindptr, g.rindices)    # [v, u] = 1 for each edge (u, v)
+    a = torch.from_numpy(np.ascontiguousarray(ds.T)).to(dev)    # (n, Q)
+    b = torch.from_numpy(np.ascontiguousarray(dt.T)).to(dev)
+    is_t = (b == 0).double()
+
+    def lvl(i):
+        return (a <= i) & (b <= k - i)
+    qp = torch.zeros((k + 1, ds.shape[0]), dtype=torch.float64, device=dev)
+    qs = torch.zeros_like(qp)
+    c = lvl(k).double()
+    qs[k] = c.sum(0)
+    for i in range(k - 1, -1, -1):
+        contrib = fwd @ torch.where(b <= k - i - 1, c, 0.0).contiguous()
+        c = torch.where(lvl(i), contrib + is_t * c, 0.0)
+        qs[i] = c.sum(0)
+    c = lvl(0).double()
+    qp[0] = c.sum(0)
+    for i in range(1, k + 1):
+        contrib = rev @ torch.where(a <= i - 1, c, 0.0).contiguous()
+        c = torch.where(lvl(i), contrib + is_t * c, 0.0)
+        qp[i] = c.sum(0)
+    return (qp.T.cpu().numpy(), qs.T.cpu().numpy(),
+            (c * is_t).sum(0).cpu().numpy())
+
+
+def check_mesh_one(torch, np, tc, est, g, picks, stats, outs, batch_runs,
+                   dev):
+    """``mesh_1`` against the port's own paths: distances equal to the
+    stacked BFS; DP tables within rtol 1e-5 of ``plain_mesh_dp`` (float32
+    sums in any order against float64) and, entry by entry, at or above
+    each pick's host ``walk_count_dp`` on its index (Alg. 5 on the index
+    drops the edges into s and out of t, which ``repro``'s mesh DP keeps,
+    so the mesh may count more walks; how many picks differ is
+    reported); counts equal to the batch phase's fused leg and the
+    ``first_n`` leg's items equal to the batch phase's (all checked there
+    against the host backend).  Returns the DP comparisons."""
+    qp, qsx, tot, (ds, dt) = stats
+    want = tc.batched_index_distances(
+        g, [(s, t, K_LARGE) for s, t, _ in picks], device=dev)
+    for i, (s, t, idx) in enumerate(picks):
+        check(np.array_equal(ds[i], want[i][0])
+              and np.array_equal(dt[i], want[i][1]),
+              f"mesh_1 {s}->{t}: distances differ from the stacked BFS")
+    t0 = time.perf_counter()
+    plain = plain_mesh_dp(torch, np, g, K_LARGE, ds, dt, dev)
+    plain_s = time.perf_counter() - t0
+    errs = {"q_prefix": 0.0, "q_suffix": 0.0, "totals": 0.0}
+    for name, got, ref in zip(errs, (qp, qsx, tot), plain):
+        e = dp_rel_err(np, got, ref)
+        check(e <= 1e-5, f"mesh_1: {name} differs from the plain "
+                         f"recurrence by rel {e}")
+        errs[name] = e
+    differ, excess = 0, 0.0
+    for i, (s, t, idx) in enumerate(picks):
+        dp = est.walk_count_dp(idx, backend="host", device=dev)
+        for name, got, ref in (("q_prefix", qp[i], dp.q_prefix),
+                               ("q_suffix", qsx[i], dp.q_suffix),
+                               ("totals", tot[i], dp.q_total)):
+            check(bool(np.all(np.asarray(got, np.float64)
+                              >= np.asarray(ref) * (1 - 1e-5))),
+                  f"mesh_1 {s}->{t}: {name} {got} below the index DP's "
+                  f"{ref}")
+        e = dp_rel_err(np, tot[i], dp.q_total)
+        differ += e > 1e-5
+        excess = max(excess, e)
+    legs = {leg: out for leg, _kw, out, _k5 in batch_runs}
+    for got, want in zip(outs["count_only"].items, legs["fused"].items):
+        check((got.s, got.t) == (want.s, want.t)
+              and got.result.count == want.result.count,
+              f"mesh_1 count_only {got.s}->{got.t}: {got.result.count} vs "
+              f"the batch phase's {want.result.count}")
+    for got, want in zip(outs["first_n"].items, legs["first_n"].items):
+        a, b = got.result, want.result
+        check((got.s, got.t) == (want.s, want.t) and a.count == b.count
+              and a.as_tuples() == b.as_tuples() and a.stats == b.stats
+              and a.exhausted == b.exhausted,
+              f"mesh_1 first_n {got.s}->{got.t}: differs from the batch "
+              f"phase's item")
+    check(len(outs["first_n"].items) == len(legs["first_n"].items)
+          == len(picks), "mesh_1: item counts differ")
+    return {"dp_max_rel_err_vs_plain": errs, "plain_dp_s": plain_s,
+            "picks_whose_total_exceeds_the_index_dp": differ,
+            "max_rel_excess_over_the_index_dp": excess}
+
+
+MESH_WORKERS = 2
+MESH_WORKER_TIMEOUT = 600.0
+
+
+def mesh_gloo2(np, compat, g, qs, stats, dev, tmp):
+    """``mesh_gloo2``: two processes on the one card, a 1 x 2 gloo mesh,
+    each loading the graph's arrays from a file written here; their
+    tables against ``mesh_1``'s."""
+    data = Path(tmp) / "graph.npz"
+    t0 = time.perf_counter()
+    np.savez(data, n=g.n, indptr=g.indptr, indices=g.indices,
+             rindptr=g.rindptr, rindices=g.rindices, esrc=g.esrc,
+             edst=g.edst, queries=qs, k=K_LARGE)
+    write_s = time.perf_counter() - t0
+    init = f"tcp://127.0.0.1:{compat.free_port()}"
+    out = str(Path(tmp) / "rank%d.npz")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
+         "--mesh-init", init, "--mesh-data", str(data), "--mesh-out", out,
+         "--mesh-device", str(dev)], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for r in range(MESH_WORKERS)]
+    try:
+        res = [p.communicate(timeout=MESH_WORKER_TIMEOUT) for p in procs]
+    except subprocess.TimeoutExpired:
+        res = None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    check(res is not None, f"mesh_gloo2: the ranks ran past "
+                           f"{MESH_WORKER_TIMEOUT} s")
+    for r, (p, (so, se)) in enumerate(zip(procs, res)):
+        check(p.returncode == 0, f"mesh_gloo2 rank {r} exited "
+                                 f"{p.returncode}: {se[-3000:]}")
+    lines = [json.loads(so.strip().splitlines()[-1]) for so, _se in res]
+    qp, qsx, tot, (ds, dt) = stats
+    errs = {}
+    for r in range(MESH_WORKERS):
+        with np.load(out % r) as got:
+            check(np.array_equal(got["ds"], ds)
+                  and np.array_equal(got["dt"], dt),
+                  f"mesh_gloo2 rank {r}: distances differ from mesh_1's")
+            for name, ref in (("q_prefix", qp), ("q_suffix", qsx),
+                              ("totals", tot)):
+                e = dp_rel_err(np, got[name], ref)
+                check(e <= 1e-5, f"mesh_gloo2 rank {r}: {name} differs "
+                                 f"from mesh_1's (rel {e})")
+                errs[name] = max(errs.get(name, 0.0), e)
+    emit({"phase": "mesh", "leg": "mesh_gloo2", "mesh": [1, MESH_WORKERS],
+          "backend": lines[0]["backend"], "wire": lines[0]["wire"],
+          "queries": len(qs), "write_s": write_s, "wall_s": wall,
+          "ranks": lines, "dp_max_rel_err_vs_mesh_1": errs})
+
+
+def mesh_worker(args) -> None:
+    """One rank of ``mesh_gloo2`` (``--mesh-rank``): the graph from
+    ``--mesh-data``, a 1 x 2 gloo mesh on ``--mesh-device``, the stats
+    of the file's queries; the tables to ``--mesh-out`` and one JSON
+    line with the stage seconds, edge bytes and collectives.  The hop
+    bound comes with the graph."""
+    import numpy as np
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.core as tc
+    from repro_torch import compat
+    from repro_torch.distributed import DistributedPathEnum
+
+    t0 = time.perf_counter()
+    dev = torch.device(args.mesh_device)
+    mesh = compat.make_mesh((1, MESH_WORKERS), ("data", "model"), device=dev,
+                            backend="gloo", init_method=args.mesh_init,
+                            rank=args.mesh_rank)
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with np.load(args.mesh_data) as f:
+        g = tc.Graph(int(f["n"]), f["indptr"], f["indices"], f["rindptr"],
+                     f["rindices"], f["esrc"], f["edst"])
+        qs, k = f["queries"], int(f["k"])
+    load_s = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        dpe = DistributedPathEnum(mesh, g, k, device=dev)
+        torch.cuda.synchronize()
+        shard_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        qp, qsx, tot, (ds, dt) = dpe.query_batch_stats(qs)
+        stats_s = time.perf_counter() - t0
+        np.savez(args.mesh_out % args.mesh_rank, q_prefix=qp, q_suffix=qsx,
+                 totals=tot, ds=ds, dt=dt)
+        emit({"rank": args.mesh_rank, "backend": dpe.model.backend,
+              "wire": dpe.model.kind, "init_s": init_s, "load_s": load_s,
+              "shard_s": shard_s, **dpe.last_timing, "stats_s": stats_s,
+              "edge_bytes_per_rank": dpe.edge_bytes(),
+              "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+              **dpe.comm_counts()})
+    finally:
+        tdist.destroy_process_group()
+
+
+def mesh_phase(torch, np, tc, est, kernels, g, picks, batch_runs, dev):
+    """The mesh engine on the large graph: ``mesh_1`` (its launches
+    counted from 0 and returned), its checks, ``mesh_gloo2``."""
+    import tempfile
+    from repro_torch import compat
+    from repro_torch import distributed as dist_mod
+    qs = np.array([(s, t) for s, t, _ in picks], np.int64)
+    t_phase = time.perf_counter()
+    stats, outs, launches, comm = mesh_one(torch, tc, kernels, compat,
+                                           dist_mod, g, qs, dev)
+    cmp = check_mesh_one(torch, np, tc, est, g, picks, stats, outs,
+                         batch_runs, dev)
+    emit({"phase": "mesh", "leg": "mesh_1_check", "ok": True, **cmp,
+          "all_reduce_calls_per_stats": comm["all_reduce_calls"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_gloo2(np, compat, g, qs, stats, dev, tmp)
+    emit({"phase": "mesh", "leg": "done",
+          "seconds": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # the LM attention kernels (K6, K7) and the LM serving path
 # ---------------------------------------------------------------------------
 
@@ -1951,7 +2290,8 @@ def decode_row(torch, kd, q, kc, vc, lengths, reps=10):
 def attention_kernel_phase(torch, np, kf, kd, dev, seed):
     """K6 and K7 at fixed shapes (``kernel`` lines): K6 at L = 4096 in
     float32 and bfloat16, windowed and with Lq < Lk; K7 over a 32768-long
-    cache of 16 rows in float32 and bfloat16."""
+    cache of 16 rows in float32 and bfloat16; then both at head dim 96
+    (phi3-vision: 32 query and 32 KV heads), K7 over 4 rows."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 6)
 
@@ -1981,6 +2321,29 @@ def attention_kernel_phase(torch, np, kf, kd, dev, seed):
     q, kc, vc = normal(B, H, D), normal(B, S, Hkv, D), normal(B, S, Hkv, D)
     for case, dtype in (("long_cache_f32", torch.float32),
                         ("long_cache_bf16", torch.bfloat16)):
+        row = decode_row(torch, kd, q.to(dtype), kc.to(dtype), vc.to(dtype),
+                         lengths, reps=5)
+        emit({"phase": "kernel", "name": "decode_attention", "case": case,
+              **row})
+    del q, kc, vc
+    torch.cuda.empty_cache()
+
+    # phi3-vision's attention: 32 query and 32 KV heads of 96
+    B, L, H, D = 1, 4096, 32, 96
+    q, k, v = normal(B, L, H, D), normal(B, L, H, D), normal(B, L, H, D)
+    for case, dtype in (("phi3_d96_causal_f32", torch.float32),
+                        ("phi3_d96_causal_bf16", torch.bfloat16)):
+        row = flash_row(torch, np, kf, q.to(dtype), k.to(dtype),
+                        v.to(dtype))
+        emit({"phase": "kernel", "name": "flash_attention", "case": case,
+              **row})
+    del q, k, v
+    B, S = 4, 32768
+    lengths = torch.from_numpy(rng.integers(S // 2, S + 1, B).astype(
+        np.int32)).to(dev)
+    q, kc, vc = normal(B, H, D), normal(B, S, H, D), normal(B, S, H, D)
+    for case, dtype in (("phi3_d96_long_cache_f32", torch.float32),
+                        ("phi3_d96_long_cache_bf16", torch.bfloat16)):
         row = decode_row(torch, kd, q.to(dtype), kc.to(dtype), vc.to(dtype),
                          lengths, reps=5)
         emit({"phase": "kernel", "name": "decode_attention", "case": case,
@@ -2243,6 +2606,14 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=3)
     ap.add_argument("--batch", type=int, default=16,
                     help="queries of the batch phase's fused leg")
+    # one rank of the mesh phase's two-process gloo mesh (the script
+    # starts these itself)
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-init", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-data", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-device", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -2255,6 +2626,9 @@ def main() -> None:
         if var in os.environ:
             fail(f"{var} is set; it would move work off the path measured "
                  f"here")
+    if args.mesh_rank is not None:
+        mesh_worker(args)
+        return
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
@@ -2372,6 +2746,17 @@ def main() -> None:
               f"{name} launched in the ranked phase")
     emit({"phase": "ranked_check", "ok": True,
           "launches": {n: ranked_launches[n] for n in PATHENUM_KERNELS},
+          "seconds": time.perf_counter() - t_start})
+
+    # the mesh engine: mesh_1's counts from 0, read right after it
+    mesh_launches = mesh_phase(torch, np, tc, est, kernels, g, picks,
+                               batch_runs, dev)
+    check(mesh_launches["frontier_fused_masks"] > 0,
+          "frontier_fused_masks never launched in the mesh phase")
+    for name in MESH_KERNELS_OFF:
+        check(mesh_launches[name] == 0, f"{name} launched in the mesh phase")
+    emit({"phase": "mesh_check", "ok": True,
+          "launches": {n: mesh_launches[n] for n in PATHENUM_KERNELS},
           "seconds": time.perf_counter() - t_start})
     del full, lone
     del large_runs, small_runs, batch_runs, index_of, largest, picks, shared

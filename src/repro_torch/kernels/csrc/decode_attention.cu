@@ -22,7 +22,11 @@
 //    query head of the group reads each position once from the cache.
 //  * Within a block, each warp splits into lane groups; a lane group
 //    takes kU positions a step, its lanes splitting D into 16-byte
-//    vectors (8 bfloat16 or 4 float32 values).  The loads are cp.async
+//    vectors (8 bfloat16 or 4 float32 values).  A group has a power of
+//    two of lanes, so the logit's shuffle reduction stays in the group:
+//    where D holds no power of two of vectors (D = 96: 24 float32 or 12
+//    bfloat16 vectors) the group rounds up to 32 or 16 lanes and the
+//    lanes past D's vectors load nothing and add zeros.  The loads are cp.async
 //    copies into a two-stage ring in shared memory, one step ahead; each
 //    lane reads back only the bytes it copied itself, so the ring needs
 //    no barrier.  Logits reduce over the group's lanes with shuffles, and
@@ -74,11 +78,19 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
   }
 }
 
+// the least power of two at or above x
+constexpr int pow2_at_least(int x) {
+  return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2);
+}
+
 template <typename T, int D>
 struct Geometry {
   static constexpr int VEC = 16 / sizeof(T);                   // per vector
-  static constexpr int LPP = D / VEC < 32 ? D / VEC : 32;      // lanes/pos
-  static constexpr int NV = D / (VEC * LPP);                   // vec/lane
+  static constexpr int VPR = D / VEC;                          // vec/row
+  static constexpr int LPP = VPR < 32 ? pow2_at_least(VPR) : 32;  // lanes
+  static constexpr int NV = (VPR + LPP - 1) / LPP;             // vec/lane
+  static_assert(VPR <= LPP || VPR % LPP == 0, "lanes must split D evenly");
+  static constexpr bool FULL = NV * LPP == VPR;                // no idle lane
   static constexpr int PPW = 32 / LPP;                         // pos/warp
   static constexpr int NG = kWarps * PPW;                      // groups
   static constexpr int STEP = NG * kU;                         // pos/step
@@ -121,6 +133,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   const int lane = tid % 32;
   const int li = lane % LPP;                         // lane in its group
   const int grp = (tid / 32) * PPW + lane / LPP;     // group in the block
+  // the lane holds a part of D (every lane does unless D's vectors fall
+  // short of the group's lanes: NV is then 1)
+  const bool on = Geo::FULL || li < Geo::VPR;
 
   float qf[GT][W], acc[GT][W], m[GT], l[GT];
 #pragma unroll
@@ -129,7 +144,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
       float f[VEC];
-      unpack(*reinterpret_cast<const uint4*>(qg + (v * LPP + li) * VEC), f);
+      const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+      unpack(on ? *reinterpret_cast<const uint4*>(qg + (v * LPP + li) * VEC)
+                : zero, f);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         qf[g][v * VEC + e] = f[e] * scale_log2;
@@ -156,11 +173,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       const long long at = (ok ? pos : 0) * row_stride;
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
-        const int d0 = (v * LPP + li) * VEC;
+        const int d0 = on ? (v * LPP + li) * VEC : 0;
         sm90::cp_async16(slot(st % kStages, u, 0, v), kb + at + d0,
-                         ok ? 16 : 0);
+                         ok && on ? 16 : 0);
         sm90::cp_async16(slot(st % kStages, u, 1, v), vb + at + d0,
-                         ok ? 16 : 0);
+                         ok && on ? 16 : 0);
       }
     }
   };
@@ -243,6 +260,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kc,
       cm[grp * GT + g] = m[g];
       cl[grp * GT + g] = l[g];
     }
+    if (!on) continue;
 #pragma unroll
     for (int v = 0; v < NV; ++v)
 #pragma unroll
@@ -356,6 +374,9 @@ int dispatch(int D, const void* q, const void* kc, const void* vc,
                              scale, splits, chunk, stream);
     case 64:
       return by_group<T, 64>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
+                             scale, splits, chunk, stream);
+    case 96:
+      return by_group<T, 96>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H, Hkv,
                              scale, splits, chunk, stream);
     case 128:
       return by_group<T, 128>(q, kc, vc, lengths, o, pm, pl, pa, B, S, H,

@@ -106,7 +106,8 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
 // a KV tile, NB output column blocks of 8 summed together in P V, and the
 // padded row strides of the Q, K and V tiles in shared memory.  Shared
 // memory holds Q, the two-stage K and V ring and the lo parts of one K and
-// one V tile: 168.5 KiB at D = 128, 164.25 KiB at D = 256.
+// one V tile: 168.5 KiB at D = 128, 128.5 KiB at D = 96 (12 k-steps of
+// the m16n8k8 product, NB = 4), 164.25 KiB at D = 256.
 template <int D>
 struct Tiles {
   static constexpr int BQ = D == 256 ? 64 : 128;
@@ -438,6 +439,9 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                         stream);
     case 64:
       return launch<64>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal, window,
+                        stream);
+    case 96:
+      return launch<96>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal, window,
                         stream);
     case 128:
       return launch<128>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal,

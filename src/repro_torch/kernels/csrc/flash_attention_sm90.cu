@@ -31,7 +31,9 @@
 //    warpgroups drift apart and one's softmax overlaps the other's
 //    products.
 //  * S = Q K^T: D/16 `wgmma` m64nBKk16, both operands from shared memory,
-//    float32 accumulators in registers.
+//    float32 accumulators in registers.  D = 96 keeps its tiles as three
+//    32-column blocks (64-byte swizzle); the k-walk steps through them and
+//    P V runs as m64n96k16 over the same blocks.
 //  * The online softmax runs on the accumulator fragment in registers, in
 //    float32 and base 2 (logits scaled by scale * log2 e): each thread
 //    holds two rows; row max and row sum reduce over the four lanes that
@@ -61,6 +63,15 @@ constexpr size_t kMaxSmem = 232448;
 
 template <int D>
 constexpr int kv_tile() { return D <= 128 ? 128 : 64; }
+
+// columns of one swizzled block of a tile (sm90.cuh's layout): D itself
+// below 64, 64 where it divides D, else 32 (D = 96: three blocks of 32,
+// each with the 64-byte swizzle, so every column arrives and none is
+// padding)
+template <int D>
+__host__ __device__ constexpr int block_cols() {
+  return D < 64 ? D : D % 64 == 0 ? 64 : 32;
+}
 
 template <int D, int BK, int STAGES>
 constexpr size_t smem_bytes() {
@@ -103,7 +114,7 @@ template <int D, int ROWS>
 __device__ __forceinline__ void load_tile(bf16* dst, const CUtensorMap* map,
                                           uint64_t* bar, int row, int head,
                                           int b) {
-  constexpr int W = D < 64 ? D : 64;
+  constexpr int W = block_cols<D>();
 #pragma unroll
   for (int j = 0; j < D / W; ++j)
     sm90::tma_load_4d(dst + j * ROWS * W, map, bar, j * W, head, row, b);
@@ -116,7 +127,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap vmap,
                    bf16* __restrict__ o, int Lq, int Lk, int H, int Hkv,
                    float scale_log2, int causal, int window) {
-  constexpr int W = D < 64 ? D : 64;  // columns of a swizzled block
+  constexpr int W = block_cols<D>();  // columns of a swizzled block
   constexpr int RB = 2 * W;           // bytes of one of its rows
   extern __shared__ unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(
@@ -325,7 +336,7 @@ EncodeTiled encode_tiled() {
 template <int D>
 bool make_map(CUtensorMap* map, const void* base, int B, int L, int heads,
               int rows) {
-  constexpr int W = D < 64 ? D : 64;
+  constexpr int W = block_cols<D>();
   const CUtensorMapSwizzle swizzle =
       W == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
               : W == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
@@ -398,6 +409,9 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                         stream);
     case 64:
       return launch<64>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal, window,
+                        stream);
+    case 96:
+      return launch<96>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal, window,
                         stream);
     case 128:
       return launch<128>(q, k, v, o, B, Lq, Lk, H, Hkv, scale, causal,

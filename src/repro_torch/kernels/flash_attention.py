@@ -33,7 +33,7 @@ from . import _build
 f32_launches: int = 0
 wgmma_launches: int = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)
 DTYPES = (torch.float32, torch.bfloat16)
 
 

@@ -74,6 +74,7 @@ def _flash_inputs(seed, B, Lq, Lk, H, Hkv, D, dtype):
     (256, 8, 4, 32),     # group 2
     (128, 8, 2, 64),     # group 4
     (128, 8, 1, 128),    # group 8
+    (128, 4, 2, 96),     # phi3-vision's head dim
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_plain_matches_pallas_and_ref(L, H, Hkv, D, dtype):
@@ -225,7 +226,7 @@ def test_flash_split_tf32_large_logits(D):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("H,Hkv,D", [(8, 8, 16), (8, 2, 32), (8, 1, 64),
-                                     (16, 8, 128)])
+                                     (16, 8, 128), (8, 4, 96)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_plain_matches_pallas_and_ref(H, Hkv, D, dtype):
     B, S = 3, 777

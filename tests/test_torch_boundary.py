@@ -16,6 +16,10 @@
 * ``chip_smoke.py`` exits non-zero and prints no result without a CUDA
   device, and when run from a directory that holds nothing else of the
   repository.
+* The mesh engine's entry points (``compat.make_mesh``,
+  ``DistributedPathEnum``, ``DistributedTenantRouter``) default to
+  ``"cuda"`` and raise without a card before any process group exists,
+  and its modules import neither ``jax`` nor ``repro``.
 """
 import ast
 import os
@@ -29,7 +33,9 @@ import pytest
 import torch
 
 import repro_torch.core as tc
-from repro_torch import kernels
+from repro_torch import compat, kernels
+from repro_torch.distributed import (DistributedPathEnum,
+                                     DistributedTenantRouter)
 from repro_torch.configs import get_arch
 from repro_torch.kernels import _build
 from repro_torch.kernels import frontier_expand as fe
@@ -316,3 +322,49 @@ def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
     assert '"ok"' not in res.stdout
     assert np.array_equal(sorted(p.name for p in tmp_path.iterdir()),
                           ["chip_smoke.py"])
+
+
+MESH_MODULES = ("compat.py", "distributed/__init__.py",
+                "distributed/engine.py", "distributed/compression.py",
+                "distributed/wire.py")
+
+
+def test_mesh_entry_points_default_to_cuda():
+    """``make_mesh``, ``DistributedPathEnum`` and the router's default
+    engine run on the card by default; without one each raises before a
+    process group is made, and the probe says what is missing."""
+    caps = compat.probe()
+    assert caps.gloo
+    if torch.cuda.is_available():
+        assert caps.device_name == torch.cuda.get_device_name(0)
+        assert caps.sm90 == (caps.compute_capability == (9, 0))
+        return
+    assert (caps.cuda, caps.device_name, caps.compute_capability,
+            caps.sm90) == (False, None, None, False)
+    g = tc.erdos_renyi(40, 4.0, seed=7)
+    for call in (lambda: compat.make_mesh((1, 1), ("data", "model")),
+                 lambda: compat.make_mesh((1, 1), ("data", "model"),
+                                          backend="gloo"),
+                 lambda: DistributedPathEnum(None, g, 4),
+                 lambda: DistributedTenantRouter({})):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="differ in length"):
+        compat.make_mesh((1, 1), ("data",), device="cpu")
+    assert not torch.distributed.is_initialized()
+
+
+def test_mesh_modules_import_neither_jax_nor_repro():
+    root = REPO / "src" / "repro_torch"
+    for name in MESH_MODULES:
+        tree = ast.parse((root / name).read_text(), filename=name)
+        assert not set(_imported_roots(tree)) & set(FORBIDDEN), name
+    probe = ("import sys, repro_torch.compat, repro_torch.distributed\n"
+             "bad = [m for m in sys.modules if m.split('.')[0] in "
+             f"{FORBIDDEN!r}]\n"
+             "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
+    assert res.returncode == 0, res.stderr[-2000:]

@@ -699,6 +699,8 @@ def _normal(shape, seed, dtype, device):
     (2, 127, 127, 8, 2, 64, 40),        # window across a KV tile
     (1, 129, 255, 4, 4, 128, None),     # one row past a query tile
     (1, 255, 255, 4, 2, 256, 100),      # D = 256, window
+    (1, 200, 200, 8, 4, 96, None),      # D = 96 (phi3-vision)
+    (1, 129, 300, 4, 2, 96, 100),       # D = 96, Lq < Lk with a window
     (1, 129, 129, 2, 1, 128, 33),       # window one past a KV tile
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -757,6 +759,8 @@ def test_cuda_flash_attention_not_causal(cuda):
     (4, 300, 8, 8, 16, [300, 17, 64, 299]),
     (2, 129, 16, 1, 256, [129, 33]),
     (1, 5000, 4, 2, 64, [4999]),
+    (3, 777, 8, 4, 96, [3, 500, 777]),  # D = 96: lanes past D idle
+    (2, 1500, 32, 32, 96, [1500, 700]),  # phi3-vision's heads, G = 1
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_equals_plain(cuda, B, S, H, Hkv, D, lens,
@@ -799,6 +803,9 @@ def test_cuda_decode_attention_empty_row_is_zero(cuda):
     (1, 257, 500, 4, 1, 256, None, False),   # not causal, Lq < Lk
     (2, 77, 150, 16, 8, 64, None, False),    # not causal, ragged both
     (1, 1, 1, 2, 1, 16, None, True),         # one row, one column
+    (1, 300, 300, 4, 4, 96, None, True),     # D 96: three 32-column blocks
+    (1, 100, 333, 4, 2, 96, 70, True),       # D 96, Lq < Lk with a window
+    (1, 129, 200, 8, 8, 96, None, False),    # D 96, not causal
 ])
 def test_cuda_flash_attention_bf16_tile_edges(cuda, B, Lq, Lk, H, Hkv, D,
                                               window, causal):
@@ -842,6 +849,7 @@ def _split_lengths(S, chunk, B):
     (6, 2501, 8, 1, 256),     # one KV head, G = 8
     (6, 4101, 12, 4, 32),     # G = 3
     (6, 2049, 4, 4, 16),      # G = 1, D = 16
+    (2, 5001, 8, 4, 96),      # D = 96
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_decode_attention_split_boundaries(cuda, B, S, H, Hkv, D,
@@ -867,6 +875,53 @@ def test_cuda_decode_attention_split_boundaries(cuda, B, S, H, Hkv, D,
                                                 chunk=chunk)
     err = (got.float() - split_ref.float()).abs().max().item()
     assert err <= ATTN_TOL[dtype], err
+
+
+# bfloat16 error in units of each element's own size: |got - want| over
+# |want| + the rms of want's row (chip_smoke.py's scaled check, limit
+# 2^-4): the absolute 2e-2 alone cannot see a dropped block of columns.
+# Against the plain version in float32 on the same inputs the kernel may
+# be at most BF16_ERR_RATIO times as far as the plain bfloat16 version
+BF16_SCALED_TOL = 2.0 ** -4
+BF16_ERR_RATIO = 1.5
+
+
+def _scaled_err(got, want):
+    w = want.double()
+    rms = w.square().mean(-1, keepdim=True).sqrt()
+    return ((got.double() - w).abs() / (w.abs() + rms)).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_head_dim_96(cuda):
+    """phi3-vision's head dim on both K6 kernels and K7: float32 within
+    2e-5 of the plain version; bfloat16 within 2e-2 and the scaled
+    check of chip_smoke.py (both limits)."""
+    B, L, H, D = 1, 520, 8, 96
+    for dtype in (torch.float32, torch.bfloat16):
+        q = _normal((B, L, H, D), 31, dtype, cuda)
+        k = _normal((B, L, H, D), 32, dtype, cuda)
+        v = _normal((B, L, H, D), 33, dtype, cuda)
+        got = kf.flash_attention(q, k, v, causal=True)
+        want = kf.flash_attention_plain(q, k, v, causal=True)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= ATTN_TOL[dtype], (dtype, err)
+        lengths = torch.tensor([L - 7], dtype=torch.int32, device=cuda)
+        dgot = kd.decode_attention(q[:, -1].contiguous(), k, v, lengths)
+        dwant = kd.decode_attention_plain(q[:, -1].contiguous(), k, v,
+                                          lengths)
+        derr = (dgot.float() - dwant.float()).abs().max().item()
+        assert derr <= ATTN_TOL[dtype], (dtype, derr)
+        if dtype == torch.bfloat16:
+            exact = (kf.flash_attention_plain(q.float(), k.float(),
+                                              v.float(), causal=True),
+                     kd.decode_attention_plain(
+                         q[:, -1].float().contiguous(), k.float(),
+                         v.float(), lengths))
+            for g, w, e in zip((got, dgot), (want, dwant), exact):
+                assert _scaled_err(g, w) <= BF16_SCALED_TOL
+                assert _scaled_err(g, e) <= BF16_ERR_RATIO * _scaled_err(
+                    w, e)
 
 
 @pytest.mark.cuda
@@ -1109,3 +1164,107 @@ def test_cuda_constrained_query_equals_cpu(cuda):
                 assert outs[0] == outs[1], (s, t, mode)
                 found += outs[0][1] > 0
     assert found > 0
+
+
+# ---------------------------------------------------------------------------
+# the mesh engine on the card: a 1 x 1 NCCL mesh, and a 1 x 2 gloo mesh of
+# two processes sharing the one card (tests/torch_mesh_parity.py, ``cuda``)
+# ---------------------------------------------------------------------------
+
+MESH_RUNS = {"nccl_1x1": (1, 1, "nccl"), "gloo_1x2": (1, 2, "gloo")}
+
+
+@pytest.fixture(scope="module")
+def cuda_mesh_runs(tmp_path_factory):
+    """Both meshes' ranks, started together; each rank's pickled result
+    in rank order."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from repro_torch.compat import free_port
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh runs on the card")
+    here = Path(__file__).resolve().parent
+    tmp = tmp_path_factory.mktemp("cuda_mesh")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), str(here)]))
+    procs, outs = [], {}
+    for name, (rows, cols, backend) in MESH_RUNS.items():
+        init = f"tcp://127.0.0.1:{free_port()}"
+        outs[name] = str(tmp / f"{name}_%d.pkl")
+        procs += [subprocess.Popen(
+            [sys.executable, str(here / "torch_mesh_parity.py"), "cuda",
+             str(rows), str(cols), str(r), init, backend, outs[name]],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(rows * cols)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    res = {}
+    for name, (rows, cols, _b) in MESH_RUNS.items():
+        res[name] = []
+        for r in range(rows * cols):
+            with open(outs[name] % r, "rb") as fh:
+                res[name].append(pickle.load(fh))
+    return res
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nccl_equals_host_path(cuda_mesh_runs):
+    """The 1 x 1 NCCL mesh on the card: distances equal the host BFS of
+    each query's index; DP tables equal ``repro``'s mesh recurrence
+    written out in float64 numpy (float32 integers below 2^24: exact)
+    and are at or above the index's host walk-count DP (the mesh keeps
+    the edges into s and out of t); every item equals the port's host
+    engine on the CPU; the default engine fused its queries on K5."""
+    import torch_mesh_parity as mp
+    from repro_torch.core import BatchPathEnum
+    got = cuda_mesh_runs["nccl_1x1"][0]
+    assert got["wire"] == "device" and got["edge_device"].startswith("cuda")
+    g = erdos_renyi(mp.CUDA_GRAPH["n"], mp.CUDA_GRAPH["avg_degree"],
+                    seed=mp.CUDA_GRAPH["seed"])
+    qs = mp.stats_queries(g.n)
+    st = got["stats"]
+    qp, qsx, tot = mp.plain_mesh_dp(g, mp.CUDA_K, st["ds"], st["dt"])
+    assert np.array_equal(st["qp"], qp) and np.array_equal(st["qs"], qsx)
+    assert np.array_equal(st["tot"], tot)
+    for i, (s, t) in enumerate(qs):
+        idx = build_index(g, s, t, mp.CUDA_K, device="cpu")
+        dp = walk_count_dp(idx, device="cpu")
+        assert np.array_equal(st["ds"][i], idx.dist_s)
+        assert np.array_equal(st["dt"][i], idx.dist_t)
+        assert (st["qp"][i] >= dp.q_prefix).all()
+        assert (st["qs"][i] >= dp.q_suffix).all()
+        assert st["tot"][i] >= dp.q_total
+    host = mp.summarize_output(BatchPathEnum(device="cpu", backend="host").run(
+        g, [(s, t, mp.CUDA_K) for s, t in qs], count_only=False))
+    assert [i["result"] for i in got["enum"]["items"]] == \
+        [i["result"] for i in host["items"]]
+    assert got["enum"]["counters"]["fused_queries"] > 0
+    assert got["k5_launches"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_gloo_two_ranks_equal_nccl(cuda_mesh_runs):
+    """Two processes on the one card, a 1 x 2 gloo mesh (the wire goes
+    through the host): each rank holds half the edges, and both return
+    the 1 x 1 mesh's tables and items exactly."""
+    import torch_mesh_parity as mp
+    one = cuda_mesh_runs["nccl_1x1"][0]
+    g = erdos_renyi(mp.CUDA_GRAPH["n"], mp.CUDA_GRAPH["avg_degree"],
+                    seed=mp.CUDA_GRAPH["seed"])
+    for got in cuda_mesh_runs["gloo_1x2"]:
+        assert got["wire"] == "host" and got["edge_device"].startswith("cuda")
+        assert got["edge_rows"] == -(-g.m // 2)
+        for key in ("ds", "dt", "qp", "qs", "tot"):
+            assert np.array_equal(got["stats"][key], one["stats"][key]), key
+        assert got["enum"] == one["enum"]

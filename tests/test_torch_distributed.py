@@ -1,0 +1,254 @@
+"""The port's mesh engine against ``repro``'s, on the CPU over gloo.
+
+One module-wide run starts, all at once: ``repro``'s scenarios on a
+2 x 2 host mesh (a subprocess with four forced XLA CPU devices), the
+port's on a 2 x 2 gloo mesh (four ranks) and on a 1 x 1 gloo mesh (one
+rank, the shape of the card's main leg); tests/torch_mesh_parity.py
+holds the scenarios.  Each port rank runs one torch thread.
+
+Tolerances: distances are integers and must be equal; the walk-count
+tables are float32 integers below 2^24, so every sum is exact in any
+order and they must be equal too; enumeration items (counts, paths in
+order, lengths, ``EnumStats``, plans, cache/dedup/shared/fused flags)
+and every ``BatchOutput`` counter must be equal; the compressed sums
+are integers times a shared scale and must be bit-identical.  The
+compressed gradient is held to the exact one within ``repro``'s own
+bounds (tests/test_distributed.py): loss within 1e-4, every gradient
+within 5% of its largest entry (the int8 grid's step is 1/127 of it).
+"""
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from repro.distributed import compression as jcomp
+from repro.distributed import engine as jengine
+import repro_torch.core as tc
+from repro_torch.compat import free_port
+from repro_torch.distributed import compression as tcomp
+from repro_torch.distributed import engine as tengine
+
+import torch_mesh_parity as mp
+
+HERE = Path(__file__).resolve().parent
+SRC = HERE.parent / "src"
+MESHES = {"2x2": (2, 2), "1x1": (1, 1)}
+TIMEOUT = 240
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every side's pickled results: ``repro``, and per port mesh the
+    list of its ranks' results (rank order)."""
+    tmp = tmp_path_factory.mktemp("mesh")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(HERE)]),
+               OMP_NUM_THREADS="1")
+    script = str(HERE / "torch_mesh_parity.py")
+    procs = [subprocess.Popen(
+        [sys.executable, script, "repro", str(tmp / "repro.pkl")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+    outs = {}
+    for name, (rows, cols) in MESHES.items():
+        init = f"tcp://127.0.0.1:{free_port()}"
+        outs[name] = str(tmp / f"{name}_%d.pkl")
+        procs += [subprocess.Popen(
+            [sys.executable, script, "port", str(rows), str(cols), str(r),
+             init, outs[name]], env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for r in range(rows * cols)]
+    try:
+        logs = [p.communicate(timeout=TIMEOUT)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+
+    def load(path):
+        with open(path, "rb") as fh:
+            return pickle.load(fh)
+    return {"repro": load(tmp / "repro.pkl"),
+            **{name: [load(outs[name] % r) for r in range(rows * cols)]
+               for name, (rows, cols) in MESHES.items()}}
+
+
+@pytest.fixture(params=list(MESHES))
+def mesh(request):
+    return request.param
+
+
+def test_stats_equal_repro(runs, mesh):
+    want = runs["repro"]["stats"]
+    for got in runs[mesh]:
+        for key in ("ds", "dt", "qp", "qs", "tot"):
+            assert got["stats"][key].dtype == want[key].dtype, key
+            np.testing.assert_array_equal(got["stats"][key], want[key],
+                                          err_msg=key)
+
+
+def test_stats_equal_plain_recurrence(runs, mesh):
+    """The mesh's tables against the recurrence written out in float64
+    numpy over every edge (``mp.plain_mesh_dp``)."""
+    got = runs[mesh][0]["stats"]
+    g = tc.erdos_renyi(60, 4.0, seed=5)
+    qp, qs, tot = mp.plain_mesh_dp(g, mp.K, got["ds"], got["dt"])
+    np.testing.assert_array_equal(got["qp"], qp)
+    np.testing.assert_array_equal(got["qs"], qs)
+    np.testing.assert_array_equal(got["tot"], tot)
+
+
+def test_mesh_dp_counts_more_walks_than_the_index_dp():
+    """``repro``'s mesh DP relaxes every edge; Alg. 5 on the index drops
+    the edges into s and out of t (``core/index.py``), so the mesh counts
+    the walks that revisit s or pass through t as well.  On
+    ``erdos_renyi(400, 6.0, seed=11)`` at k = 5 the two differ (query
+    (340, 254): q_prefix[3] 80 against 78, totals 83 against 81); the
+    port keeps ``repro``'s recurrence, and every entry stays at or above
+    the index DP's."""
+    g = tc.erdos_renyi(400, 6.0, seed=11)
+    qs = mp.stats_queries(g.n)
+    idxs = [tc.build_index(g, s, t, 5, device="cpu") for s, t in qs]
+    qp, qsx, tot = mp.plain_mesh_dp(g, 5, np.stack([x.dist_s for x in idxs]),
+                                    np.stack([x.dist_t for x in idxs]))
+    differ = 0
+    for i, idx in enumerate(idxs):
+        dp = tc.walk_count_dp(idx, device="cpu")
+        assert (qp[i] >= dp.q_prefix).all() and (qsx[i] >= dp.q_suffix).all()
+        assert tot[i] >= dp.q_total
+        differ += tot[i] != dp.q_total
+    i = qs.index((340, 254))
+    assert list(qp[i]) == [1, 10, 48, 80, 83, 83] and tot[i] == 83
+    assert differ == 2
+
+
+def test_stats_equal_port_host_dp(runs, mesh):
+    """The mesh's tables against the port's own host walk-count DP and
+    bounded BFS on each query's index, as ``repro`` tests its own (the
+    two agree on this graph)."""
+    got = runs[mesh][0]["stats"]
+    g = tc.erdos_renyi(60, 4.0, seed=5)
+    for i, (s, t) in enumerate(mp.stats_queries(g.n)):
+        idx = tc.build_index(g, s, t, mp.K, device="cpu")
+        dp = tc.walk_count_dp(idx, device="cpu")
+        np.testing.assert_array_equal(got["qp"][i], dp.q_prefix)
+        np.testing.assert_array_equal(got["qs"][i], dp.q_suffix)
+        assert got["tot"][i] == dp.q_total
+        np.testing.assert_array_equal(got["ds"][i], idx.dist_s)
+        np.testing.assert_array_equal(got["dt"][i], idx.dist_t)
+
+
+def test_enumerate_batch_equals_repro(runs, mesh):
+    want = runs["repro"]["enum"]
+    for got in runs[mesh]:
+        assert len(got["enum"]) == len(want) == len(mp.enum_calls(
+            mp.stats_queries(60)))
+        for call, (a, b) in enumerate(zip(want, got["enum"])):
+            assert b == a, call
+    first = runs["repro"]["enum"]
+    assert first[1]["cache_stats"]["hits"] == 7        # the cache served
+    assert first[3]["counters"]["distinct_queries"] == 4
+
+
+def test_default_engine_items_equal_repro(runs, mesh):
+    """The port's default engine (``backend="device"``: K5's plain version
+    on the CPU) against ``repro``'s host engine: the same items, flags
+    and counters apart from the fused ones, which only a device backend
+    makes."""
+    want = runs["repro"]["enum_default"]
+    for got in runs[mesh]:
+        b = got["enum_default"]
+        assert [{**i, "flags": i["flags"][:3]} for i in b["items"]] == \
+            [{**i, "flags": i["flags"][:3]} for i in want["items"]]
+        assert b["cache_stats"] == want["cache_stats"]
+        drop = ("fused_queries", "fused_dispatches")
+        assert {k: v for k, v in b["counters"].items() if k not in drop} == \
+            {k: v for k, v in want["counters"].items() if k not in drop}
+        assert b["counters"]["fused_queries"] > 0
+
+
+def test_router_equals_repro(runs, mesh):
+    want = runs["repro"]["router"]
+    for got in runs[mesh]:
+        assert got["router"]["runs"] == want["runs"]
+        assert got["router"]["entries"] == want["entries"]
+        assert got["router"]["unknown"] == want["unknown"] is not None
+    assert want["runs"][0]["tenants"] == ["a", "b"]
+    assert all(n > 0 for n in want["entries"])
+
+
+def test_compressed_all_reduce_equals_repro(runs, mesh):
+    want = runs["repro"]["compressed"][mesh]
+    for got in runs[mesh]:
+        d, c = got["coords"]
+        for name in ("data", "world"):
+            a, b = want[name][(d, c)], got["compressed"][name]
+            assert b["w"].tobytes() == a["w"].tobytes(), name
+            assert b["b"][0].tobytes() == a["b"][0].tobytes(), name
+
+
+def test_compressed_grad_fn_within_repro_bound(runs, mesh):
+    for got in runs[mesh]:
+        assert got["grad"]["loss_diff"] < 1e-4
+        assert got["grad"]["max_rel"] < 0.05
+
+
+def test_collectives_once_per_level(runs, mesh):
+    """One MIN all-reduce per BFS level (two BFS), one SUM per DP level
+    (both directions), each over the rank's (Q_local, n) rows; five
+    all-gathers over ``data``; each rank holds its share of the padded
+    edge list."""
+    rows, cols = MESHES[mesh]
+    n, q_local = 60, 8 // rows
+    g = tc.erdos_renyi(60, 4.0, seed=5)
+    for got in runs[mesh]:
+        comm = got["comm"]
+        assert comm["all_reduce_calls"] == 4 * mp.K
+        assert comm["all_reduce_bytes"] == 4 * mp.K * q_local * n * 4
+        assert comm["all_gather_calls"] == 5
+        assert got["edge_rows"] == -(-g.m // cols)
+        assert got["indivisible_raises"] in ((None,) if rows == 1
+                                             else (True,))
+
+
+def test_ranks_return_the_same_output(runs):
+    first = runs["2x2"][0]
+    for other in runs["2x2"][1:]:
+        for key in ("enum", "enum_default", "router"):
+            assert other[key] == first[key], key
+
+
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 7])
+def test_pad_edges_equals_repro(shards):
+    g = tc.erdos_renyi(30, 3.0, seed=2)
+    for a, b in zip(tengine._pad_edges(g.esrc, g.edst, shards),
+                    jengine._pad_edges(g.esrc, g.edst, shards)):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_quantize_bit_identical(seed):
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal(257 + 100 * seed)
+         * 10.0 ** rng.uniform(-3, 3)).astype(np.float32)
+    r = (rng.standard_normal(x.shape) * 0.01).astype(np.float32)
+    jq, js = jcomp.quantize(jnp.asarray(x))
+    tq, ts = tcomp.quantize(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    assert ts.numpy().tobytes() == np.asarray(js).tobytes()
+    assert tcomp.dequantize(tq, ts).numpy().tobytes() == \
+        np.asarray(jcomp.dequantize(jq, js)).tobytes()
+    want = jcomp.quantize_with_feedback(jnp.asarray(x), jnp.asarray(r))
+    got = tcomp.quantize_with_feedback(torch.from_numpy(x),
+                                       torch.from_numpy(r))
+    for a, b in zip(want, got):
+        assert b.numpy().tobytes() == np.asarray(a).tobytes()
