@@ -156,11 +156,33 @@ Phases, one JSON line each (``{"phase": ...}``):
    the float32 plain path on the same bfloat16-rounded weights: the
    kernels' error may be at most 1.5 times the plain path's.  Both
    errors are printed, and K6's share of the prefill.
+15. ``families`` — the five families past dense at full width, random
+   weights from the seed.  First K6 and K7 at recurrentgemma-9b's
+   attention (``kernel`` lines, both dtypes: K6 at (1, 4096, 16, 1, 256)
+   with its 2048 window, K7 over an 8-slot ring buffer of 2048
+   positions).  Then one leg each: phi3-vision (2 × 512 prompt tokens,
+   a 256-row ``prefix_emb``), musicgen (2 × 512, 64 rows), mamba2 (2 ×
+   512; no attention kernel may launch) and recurrentgemma (1 × 4096, so
+   the window bites) in float32; qwen3-moe (2 × 512) and llama4-maverick
+   cut to one (moe, dense) super-block (2 × 512) in bfloat16.  Each leg:
+   a timed prefill, 8 greedy requests (8–32 prompt tokens, 16 new) on an
+   8-slot engine, peak ``max_memory_allocated``, its launches, a traced
+   decode step (``families_trace``), K6 and K7 ``kernel`` lines at the
+   shapes the leg gave them (case = the arch), and ``families_check``
+   lines: float32 legs as ``lm_check`` on two requests, and
+   recurrentgemma also two requests decoded on a 16-position ring, so
+   it wraps, against the plain forward with a 16-position window;
+   bfloat16 legs by ``moe_check``, the served prefill and two
+   teacher-forced requests' decode, every path on the kernel path's
+   expert routes and the routes each takes on its own counted:
+   qwen3-moe under ``lm_bf16_check``'s rule at all 48 layers (its
+   float32 reference casts each layer when it reads it), llama4 against
+   the plain bfloat16 path.
 
 The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 7, phase 8, the
-``mesh_1`` leg of phase 9, phase 11 and phase 13, each read just after
-its phase or leg.  K5 is held against its plain
+``mesh_1`` leg of phase 9, phase 11, phase 13 and each leg of phase 15,
+each read just after its phase or leg.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -180,6 +202,8 @@ device, or outside a checkout, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -2354,15 +2378,16 @@ def attention_kernel_phase(torch, np, kf, kd, dev, seed):
 
 def record_attention_calls(kf, kd, n_layers):
     """Wrap the K6 and K7 wrappers (looked up at call time by the
-    attention layers) so the first K6 call's inputs, and (q, lengths) of
-    every decode step's first layer, are kept; returns the record and a
-    function that unwraps them."""
+    attention layers) so the first K6 call's inputs and window, and (q,
+    lengths) of every decode step's first layer (``n_layers`` attention
+    layers a step), are kept; returns the record and a function that
+    unwraps them."""
     orig_f, orig_d = kf.flash_attention, kd.decode_attention
     seen = {"flash": None, "decode": [], "decode_calls": 0}
 
     def flash(q, k, v, **kw):
         if seen["flash"] is None:
-            seen["flash"] = (q, k, v)
+            seen["flash"] = (q, k, v, kw.get("window"))
         return orig_f(q, k, v, **kw)
 
     def decode(q, kc, vc, lengths, **kw):
@@ -2378,38 +2403,60 @@ def record_attention_calls(kf, kd, n_layers):
     return seen, restore
 
 
+def tree_leaves(tree):
+    """The tensors of a parameter tree or a cache, in order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
              n_requests=16, slots=8, max_len=1024, max_tokens=32,
-             params=None):
-    """The LM serving path: parameters (random from the seed unless
-    given), a timed prefill (after one untimed call of the same shape)
-    and a served batch of requests; returns what the check and the kernel
-    rows need, and the metrics."""
+             params=None, batch=2, prompt_lens=(8, 65), prefix_rows=0,
+             dtype=None, prefill_ctx=None):
+    """The LM serving path: parameters (random from the seed in ``dtype``,
+    default float32, unless given), a timed prefill of ``batch`` prompts
+    (after one untimed call of the same shape; with a ``prefix_emb`` of
+    ``prefix_rows`` rows for vlm and audio; inside ``prefill_ctx`` when
+    given, which the MoE legs use to record its routes) and a served
+    batch of requests (prompts of ``prompt_lens`` tokens, a half-open
+    range); returns what the check and the kernel rows need, and the
+    metrics."""
     t0 = time.perf_counter()
     if params is None:
-        params = tm.init_params(cfg, seed, device=dev)
+        params = tm.init_params(cfg, seed, device=dev,
+                                dtype=dtype or torch.float32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    leaves = [params["embed"], params["final_norm"], params["head"]]
-    for blk in params["layers"]:
-        leaves += [blk["ln1"], blk["ln2"], *blk["attn"].values(),
-                   *blk["mlp"].values()]
-    param_bytes = sum(x.numel() * x.element_size() for x in leaves)
+    param_bytes = sum(x.numel() * x.element_size()
+                      for x in tree_leaves(params))
 
     rng = np.random.default_rng(seed + 11)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, prompt_len))
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (batch, prompt_len))
                               ).to(dev)
+    inputs = {"tokens": tokens}
+    if prefix_rows:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 12)
+        inputs["prefix_emb"] = torch.randn((batch, prefix_rows, cfg.d_model),
+                                           generator=gen, device=dev)
     prefill = step.make_prefill(cfg)
-    prefill(params, {"tokens": tokens})
+    prefill(params, inputs)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    logits, cache, lengths = prefill(params, {"tokens": tokens})
-    torch.cuda.synchronize()
-    prefill_s = time.perf_counter() - t0
-    check(logits.shape == (2, 1, cfg.vocab) and cache["k"].shape
-          == (cfg.num_layers, 2, prompt_len, cfg.kv_heads, cfg.hd)
-          and lengths.tolist() == [prompt_len] * 2,
-          f"prefill shapes: {tuple(logits.shape)}, {tuple(cache['k'].shape)}")
+    with prefill_ctx or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        logits, cache, lengths = prefill(params, inputs)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    n_attn = sum(k in tm.ATTN_KINDS for k in tm.layer_kinds(cfg))
+    kv_shape = (n_attn, batch, prompt_len, cfg.kv_heads, cfg.hd)
+    check(logits.shape == (batch, 1, cfg.vocab)
+          and (cache["k"].shape == kv_shape if n_attn else cache == {})
+          and lengths.tolist() == [prompt_len] * batch,
+          f"prefill shapes: {tuple(logits.shape)}, "
+          f"{[tuple(x.shape) for x in tree_leaves(cache)]}")
     del cache
 
     eng = serving.ServeEngine(cfg, params, batch_slots=slots,
@@ -2420,7 +2467,7 @@ def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
     eng.step_fn(params, eng.cur_tok, eng.cache, eng.lens, eng.generator)
     torch.cuda.synchronize()
     reqs = [serving.Request(uid=i, prompt=rng.integers(
-        0, cfg.vocab, int(rng.integers(8, 65))).astype(np.int32),
+        0, cfg.vocab, int(rng.integers(*prompt_lens))).astype(np.int32),
         max_tokens=max_tokens) for i in range(n_requests)]
     for r in reqs:
         eng.submit(r)
@@ -2438,23 +2485,24 @@ def lm_phase(torch, np, tm, step, serving, cfg, dev, seed, prompt_len=2048,
           "d_model": cfg.d_model, "heads": cfg.num_heads,
           "kv_heads": cfg.kv_heads, "head_dim": cfg.hd, "vocab": cfg.vocab,
           "dtype": str(params["embed"].dtype), "param_bytes": param_bytes,
-          "param_count": cfg.param_count() + cfg.d_model,
+          "param_count": sum(x.numel() for x in tree_leaves(params)),
           "init_s": init_s,
-          "prefill_batch": 2, "prefill_len": prompt_len,
+          "prefill_batch": batch, "prefill_len": prompt_len,
+          "prefix_rows": prefix_rows,
           "prefill_s": prefill_s,
-          "prefill_tokens_per_s": 2 * prompt_len / prefill_s,
+          "prefill_tokens_per_s": batch * prompt_len / prefill_s,
           "serve_slots": slots, "serve_max_len": max_len,
-          "cache_bytes": 2 * eng.cache["k"].numel()
-          * eng.cache["k"].element_size(),
+          "cache_bytes": sum(x.numel() * x.element_size()
+                             for x in tree_leaves(eng.cache)),
           "requests": n_requests, "prompt_tokens": replayed + n_requests,
           "replay_steps": replayed, "steps_run": eng.steps_run,
           "generated_tokens": generated, "serve_s": serve_s,
           "decode_tokens_per_s": generated / serve_s,
           "ms_per_engine_step": serve_s / (replayed + eng.steps_run) * 1e3,
           "peak_device_bytes": torch.cuda.max_memory_allocated(dev)}
-    return dict(params=params, tokens=tokens, prefill_logits=logits,
-                prefill_s=prefill_s, reqs=reqs, results=results,
-                engine=eng), metrics
+    return dict(params=params, tokens=tokens, inputs=inputs,
+                prefill_logits=logits, prefill_s=prefill_s, reqs=reqs,
+                results=results, engine=eng), metrics
 
 
 def device_busy(torch, fn, steps):
@@ -2489,11 +2537,11 @@ def device_busy(torch, fn, steps):
 
 
 def lm_kernel_rows(torch, np, kf, kd, seen, eng, case="lm_phase"):
-    """K6 at the prefill's shape (its first layer's inputs) and K7 at the
-    engine's shape: the recorded decode call with the most cached
-    positions, over the engine's layer-0 cache."""
-    q, k, v = seen["flash"]
-    rows = {"flash_attention": flash_row(torch, np, kf, q, k, v)}
+    """K6 at the prefill's shape (its first layer's inputs and window)
+    and K7 at the engine's shape: the recorded decode call with the most
+    cached positions, over the engine's layer-0 cache."""
+    q, k, v, window = seen["flash"]
+    rows = {"flash_attention": flash_row(torch, np, kf, q, k, v, window)}
     sums = torch.stack([lens for _, lens in seen["decode"]]).sum(1)
     qd, lengths = seen["decode"][int(sums.argmax())]
     rows["decode_attention"] = decode_row(
@@ -2503,10 +2551,41 @@ def lm_kernel_rows(torch, np, kf, kd, seen, eng, case="lm_phase"):
     return rows
 
 
-def lm_check(torch, np, tm, cfg, run, dev, n_check=4):
+def forced_tokens(torch, np, reqs, out, dev):
+    """The served requests' prompts followed by their served tokens but
+    the last, zero-padded into one (n, T) batch, and the (n, T) mask of
+    the positions each request fills."""
+    seqs = [list(r.prompt) + out[r.uid][:-1] for r in reqs]
+    toks = np.zeros((len(seqs), max(len(s) for s in seqs)), np.int64)
+    for i, s in enumerate(seqs):
+        toks[i, :len(s)] = s
+    mask = np.arange(toks.shape[1])[None, :] < np.array(
+        [len(s) for s in seqs])[:, None]
+    return (torch.from_numpy(toks).to(dev), torch.from_numpy(mask).to(dev))
+
+
+def decode_chain(torch, tm, params, cfg, toks, max_len, impl, dtype):
+    """``toks`` (n, T) teacher-forced through ``decode_step`` on a fresh
+    cache of ``max_len`` positions in ``dtype``: the logits of every
+    step, (n, T, vocab) float32."""
+    n, T = toks.shape
+    cache = tm.init_cache(cfg, n, max_len, dtype=dtype, device=toks.device)
+    lens = torch.zeros(n, dtype=torch.int32, device=toks.device)
+    steps = []
+    with torch.no_grad():
+        for p in range(T):
+            lg, cache = tm.decode_step(params, cfg, toks[:, p], cache, lens,
+                                       impl=impl)
+            steps.append(lg.float())
+            lens = lens + 1
+    return torch.stack(steps, 1)
+
+
+def lm_check(torch, np, tm, cfg, run, dev, n_check=4, phase="lm_check",
+             leg=None):
     """The LM path's logits against the port's plain path on the card."""
-    params, tokens = run["params"], run["tokens"]
-    plain, _ = tm.forward(params, cfg, {"tokens": tokens}, impl="xla")
+    params = run["params"]
+    plain, _ = tm.forward(params, cfg, run["inputs"], impl="xla")
     got = run["prefill_logits"][:, 0]
     check(bool(torch.isfinite(got).all()), "prefill: non-finite logits")
     err_prefill = (got - plain[:, -1]).abs().max().item()
@@ -2515,31 +2594,16 @@ def lm_check(torch, np, tm, cfg, run, dev, n_check=4):
     del plain
     reqs = run["reqs"][:n_check]
     out = run["results"]
-    seqs = [list(r.prompt) + out[r.uid][:-1] for r in reqs]
-    n_max = max(len(s) for s in seqs)
-    toks = np.zeros((len(seqs), n_max), np.int64)
-    for i, s in enumerate(seqs):
-        toks[i, :len(s)] = s
-    toks = torch.from_numpy(toks).to(dev)
-    cache = tm.init_cache(cfg, len(seqs), n_max, device=dev)
-    lens = torch.zeros(len(seqs), dtype=torch.int32, device=dev)
-    steps = []
-    with torch.no_grad():
-        for p in range(n_max):
-            lg, cache = tm.decode_step(params, cfg, toks[:, p], cache, lens,
-                                       impl="flash")
-            steps.append(lg)
-            lens = lens + 1
-    decoded = torch.stack(steps, 1)
-    del cache, steps
+    toks, mask = forced_tokens(torch, np, reqs, out, dev)
+    decoded = decode_chain(torch, tm, params, cfg, toks, toks.shape[1],
+                           "flash", torch.float32)
     plain, _ = tm.forward(params, cfg, {"tokens": toks}, impl="xla")
-    err_decode, checked, ties = 0.0, 0, 0
-    for i, (r, s) in enumerate(zip(reqs, seqs)):
-        n, P = len(s), len(r.prompt)
-        check(bool(torch.isfinite(decoded[i, :n]).all()),
-              f"request {r.uid}: non-finite decode logits")
-        err_decode = max(err_decode,
-                         (decoded[i, :n] - plain[i, :n]).abs().max().item())
+    check(bool(torch.isfinite(decoded[mask]).all()),
+          "non-finite decode logits")
+    err_decode = (decoded[mask] - plain[mask]).abs().max().item()
+    checked, ties = 0, 0
+    for i, r in enumerate(reqs):
+        n, P = int(mask[i].sum()), len(r.prompt)
         top = plain[i, P - 1:n].topk(2, dim=-1)
         margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
         best = top.indices[:, 0].cpu().numpy()
@@ -2553,22 +2617,25 @@ def lm_check(torch, np, tm, cfg, run, dev, n_check=4):
                 ties += 1
     check(err_decode <= LM_TOL, f"decode logits differ from the plain "
                                 f"forward by {err_decode} > {LM_TOL}")
-    emit({"phase": "lm_check", "ok": True, "tol": LM_TOL,
+    emit({"phase": phase, **({"leg": leg} if leg else {}), "ok": True,
+          "tol": LM_TOL,
           "tf32": bool(torch.backends.cuda.matmul.allow_tf32
                        or torch.backends.cudnn.allow_tf32),
           "prefill_max_abs_err": err_prefill,
           "decode_max_abs_err": err_decode,
-          "decode_positions": sum(len(s) for s in seqs),
+          "decode_positions": int(mask.sum()),
           "greedy_tokens_checked": checked, "greedy_near_ties": ties})
 
 
-def cast_params(tree, dtype):
-    """The parameter tree with every tensor cast to ``dtype``."""
+def cast_params(tree, dtype, keep=(), name=None):
+    """The parameter tree with every tensor cast to ``dtype``, but the
+    leaves named in ``keep`` (``transformer.FLOAT32_LEAVES``: float32 in
+    every dtype, as in ``repro``)."""
     if isinstance(tree, dict):
-        return {k: cast_params(v, dtype) for k, v in tree.items()}
+        return {k: cast_params(v, dtype, keep, k) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [cast_params(v, dtype) for v in tree]
-    return tree.to(dtype)
+        return [cast_params(v, dtype, keep) for v in tree]
+    return tree if name in keep else tree.to(dtype)
 
 
 def lm_bf16_check(torch, tm, cfg, run, prefill_k6_ms):
@@ -2581,7 +2648,7 @@ def lm_bf16_check(torch, tm, cfg, run, prefill_k6_ms):
     check(bool(torch.isfinite(got).all()), "bf16 prefill: non-finite logits")
     plain, _ = tm.forward(params, cfg, {"tokens": tokens}, impl="xla")
     plain = plain[:, -1].float()
-    ref_params = cast_params(params, torch.float32)
+    ref_params = cast_params(params, torch.float32, tm.FLOAT32_LEAVES)
     ref, _ = tm.forward(ref_params, cfg, {"tokens": tokens}, impl="xla")
     ref = ref[:, -1]
     del ref_params
@@ -2596,6 +2663,385 @@ def lm_bf16_check(torch, tm, cfg, run, prefill_k6_ms):
           "kernels_vs_plain_bf16": (got - plain).abs().max().item(),
           "prefill_k6_share": cfg.num_layers * prefill_k6_ms
           / (run["prefill_s"] * 1e3)})
+
+
+# ---------------------------------------------------------------------------
+# the five families past dense (vlm, audio, ssm, hybrid, moe)
+# ---------------------------------------------------------------------------
+
+# arch, depth (None: the config's own), dtype, prefill batch and length,
+# prefix_emb rows.  Widths are never cut; llama4-maverick's depth is cut to
+# one (moe, dense) super-block, since its 48 layers are 789 GB in bfloat16
+FAMILY_LEGS = (
+    ("phi3_vision_4p2b", None, "float32", 2, 512, 256),
+    ("musicgen_large", None, "float32", 2, 512, 64),
+    ("mamba2_780m", None, "float32", 2, 512, 0),
+    ("recurrentgemma_9b", None, "float32", 1, 4096, 0),
+    ("qwen3_moe_30b_a3b", None, "bfloat16", 2, 512, 0),
+    ("llama4_maverick_400b_a17b", 2, "bfloat16", 2, 512, 0),
+)
+# every leg's engine: 8 greedy requests of 8-32 prompt tokens, 16 new each
+FAMILY_SERVE = dict(n_requests=8, slots=8, max_len=64, max_tokens=16,
+                    prompt_lens=(8, 33))
+# qwen3-moe's bfloat16 checks hold the kernels against a float32 plain
+# path, each layer cast when read (one layer's copy, 2.4 GB, beside the
+# 60 GB of weights; the whole copy is 120 GB); llama4's are against the
+# plain bfloat16 path, since one of its moe layers is 64 GB in float32
+MOE_F32_REF = ("qwen3_moe_30b_a3b",)
+# llama4's limits against plain bfloat16: each logit within 2^-3 of
+# |plain| + its row's rms (the paths round attention differently, and
+# the one-expert FFN's outputs, about 100 times the residual stream,
+# carry the difference to every logit); at most 5% of positions routed
+# to another expert when each path routes itself
+LLAMA4_SCALED_TOL = 2.0 ** -3
+LLAMA4_FLIP_SHARE = 0.05
+# the float32 legs with a window also decode two served requests on a
+# ring of this many positions, shorter than each request, so the ring
+# wraps at full width
+RING_CHECK_LEN = 16
+# recurrentgemma-9b's attention for the K6/K7 lines: prefill length, query
+# heads (over one KV head), head dim, window = the ring buffer's length
+RGEMMA_ATTN = (4096, 16, 256, 2048)
+
+
+def family_kernel_rows(torch, np, kf, kd, dev, seed):
+    """K6 and K7 at recurrentgemma-9b's attention (16 query heads over one
+    KV head of 256, window 2048), both dtypes: K6 causal over L = 4096,
+    so the window bites; K7 over the engine's ring buffer, 8 slots of
+    S = 2048 positions, each slot's position drawn from [S/2, 2S) and its
+    valid length min(pos + 1, S)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 13)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    L, H, D, W = RGEMMA_ATTN
+    q, k, v = normal(1, L, H, D), normal(1, L, 1, D), normal(1, L, 1, D)
+    rows = {}
+    for case, dtype in (("rgemma_d256_window_2048_f32", torch.float32),
+                        ("rgemma_d256_window_2048_bf16", torch.bfloat16)):
+        rows[case] = flash_row(torch, np, kf, q.to(dtype), k.to(dtype),
+                               v.to(dtype), window=W)
+        emit({"phase": "kernel", "name": "flash_attention", "case": case,
+              **rows[case]})
+    del q, k, v
+    pos = np.random.default_rng(seed + 14).integers(W // 2, 2 * W, 8)
+    lengths = torch.from_numpy(np.minimum(pos + 1, W).astype(np.int32)
+                               ).to(dev)
+    q, kc, vc = normal(8, H, D), normal(8, W, 1, D), normal(8, W, 1, D)
+    for case, dtype in (("rgemma_d256_ring_f32", torch.float32),
+                        ("rgemma_d256_ring_bf16", torch.bfloat16)):
+        rows[case] = decode_row(torch, kd, q.to(dtype), kc.to(dtype),
+                                vc.to(dtype), lengths)
+        emit({"phase": "kernel", "name": "decode_attention", "case": case,
+              **rows[case]})
+    del q, kc, vc
+    torch.cuda.empty_cache()
+
+
+def family_launch_check(tm, cfg, dtype, launches, leg):
+    """An attention family launched its dtype's K6 kernel and K7, and not
+    the other K6 kernel; mamba2 launched no attention kernel; no leg
+    launched a PathEnum kernel."""
+    n_attn = sum(k in tm.ATTN_KINDS for k in tm.layer_kinds(cfg))
+    bf16 = str(dtype) == "torch.bfloat16"
+    k6 = "flash_attention_sm90" if bf16 else "flash_attention"
+    other = "flash_attention" if bf16 else "flash_attention_sm90"
+    if n_attn:
+        for name in (k6, "decode_attention"):
+            check(launches[name] > 0, f"{leg}: {name} never launched")
+        check(launches[other] == 0, f"{leg}: {other} launched")
+    else:
+        for name in LM_KERNELS + ("flash_attention_sm90",):
+            check(launches[name] == 0, f"{leg}: {name} launched")
+    for name in PATHENUM_KERNELS:
+        check(launches[name] == 0, f"{leg}: {name} launched")
+
+
+class RouteTap:
+    """Stands in for ``torch`` inside ``models/moe.py`` while entered
+    (``moe_ffn`` looks its ``torch`` up at call time).  Each ``topk`` call
+    (one a moe layer) either records the expert ids it returns in
+    ``routes``, in call order, or, with ``forced``, returns the next
+    forced ids and the layer's own probabilities at them, and records
+    those; every other name is torch's."""
+
+    def __init__(self, torch, moe_mod, forced=None):
+        self._torch, self._mod, self._forced = torch, moe_mod, forced
+        self.routes = []
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def __enter__(self):
+        self._mod.torch = self
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.torch = self._torch
+
+    def topk(self, probs, k, dim=-1):
+        if self._forced is None:
+            vals, ids = self._torch.topk(probs, k, dim=dim)
+        else:
+            ids = self._forced[len(self.routes)]
+            vals = self._torch.gather(probs, -1, ids)
+        self.routes.append(ids)
+        return vals, ids
+
+
+class Float32OnUse(dict):
+    """A layer's parameters read in float32: each sub-tree is cast (the
+    ``keep`` leaves as they are) when the forward or decode step reads it,
+    and freed after, so a float32 reference of a model whose float32
+    copy does not fit needs one layer's copy at a time."""
+
+    def __init__(self, blk, dtype, keep):
+        super().__init__(blk)
+        self._dtype, self._keep = dtype, keep
+
+    def __getitem__(self, name):
+        return cast_params(super().__getitem__(name), self._dtype,
+                           self._keep, name)
+
+
+def float32_on_use(torch, tm, params):
+    """``params`` in float32: the leaves outside the layers cast now,
+    each layer as ``Float32OnUse``."""
+    out = {k: cast_params(v, torch.float32, tm.FLOAT32_LEAVES, k)
+           for k, v in params.items() if k != "layers"}
+    out["layers"] = [Float32OnUse(blk, torch.float32, tm.FLOAT32_LEAVES)
+                     for blk in params["layers"]]
+    return out
+
+
+def routed_forward(torch, tm, moe_mod, params, cfg, inputs, impl,
+                   forced=None):
+    """``forward`` under a ``RouteTap``: the logits as (tokens, vocab)
+    float32 and the routes it took (or was given)."""
+    with RouteTap(torch, moe_mod, forced) as tap, torch.no_grad():
+        logits, _ = tm.forward(params, cfg, inputs, impl=impl)
+    return logits.reshape(-1, cfg.vocab).float(), tap.routes
+
+
+def routed_decode(torch, tm, moe_mod, params, cfg, toks, impl, dtype,
+                  forced=None):
+    """``decode_chain`` under a ``RouteTap``: the logits and the routes."""
+    with RouteTap(torch, moe_mod, forced) as tap:
+        logits = decode_chain(torch, tm, params, cfg, toks, toks.shape[1],
+                              impl, dtype)
+    return logits, tap.routes
+
+
+def route_flips(torch, a, b, layers):
+    """Per step and token, (steps, tokens): whether the token's set of
+    top-k experts differs between two runs' routes in any of a step's
+    ``layers`` MoE layers (a forward is one step)."""
+    f = torch.stack([(x.sort(-1).values != y.sort(-1).values).any(-1)
+                     for x, y in zip(a, b)])
+    return f.view(-1, layers, f.shape[-1]).any(1)
+
+
+def moe_check(torch, np, tm, moe_mod, cfg, run, served_routes, dev):
+    """A bfloat16 MoE leg against the port's plain path on the same
+    weights, at every position of the served prefill's prompts and of
+    two served requests teacher-forced through ``decode_step`` (K7).
+
+    Top-k routing is discontinuous, and a changed route moves its
+    token's residual and, through attention, every later token's: left
+    to route themselves, qwen3-moe's paths part at almost every
+    position.  So every path runs on the kernel path's routes:
+    the prefill's on the routes the served (timed) prefill took, the
+    decode's on those of the kernel path's chain, each layer gated by its
+    own probabilities at those experts.  The routes each path takes on
+    its own are counted (tokens whose top-k set differs in any layer)
+    and reported beside the errors.
+
+    With a float32 reference (``MOE_F32_REF``, each layer cast when read)
+    the rule is ``lm_bf16_check``'s: the kernels' logit error against the
+    float32 plain path, over the forced forward and the served prefill's
+    last logits (prefill) and over the chain (decode), may be at most
+    ``BF16_ERR_RATIO`` times the plain bfloat16 path's.  Without one
+    (llama4), the kernels' logits are held to the plain bfloat16 path's by
+    ``scaled_err`` within ``LLAMA4_SCALED_TOL``, and the own routes may
+    differ at most at ``LLAMA4_FLIP_SHARE`` of the positions."""
+    params, inputs = run["params"], run["inputs"]
+    f32 = cfg.name in MOE_F32_REF
+    n_moe = tm.layer_kinds(cfg).count("moe")
+    ref_params = float32_on_use(torch, tm, params) if f32 else None
+
+    def fwd(p, impl, forced=None):
+        return routed_forward(torch, tm, moe_mod, p, cfg, inputs, impl,
+                              forced)
+
+    B, L = inputs["tokens"].shape
+    last = torch.arange(B, device=dev) * L + L - 1
+    served = run["prefill_logits"][:, 0].float()
+    check(bool(torch.isfinite(served).all()),
+          f"{cfg.name}: non-finite prefill logits")
+    kern = fwd(params, "flash", served_routes)[0]
+    plain = fwd(params, "xla", served_routes)[0]
+    r_plain = fwd(params, "xla")[1]
+    check(bool(torch.isfinite(kern).all()), f"{cfg.name}: non-finite logits")
+    pre = {"positions": kern.shape[0],
+           "own_route_flips_kernel_vs_plain":
+               int(route_flips(torch, served_routes, r_plain, n_moe).sum())}
+
+    toks, mask = forced_tokens(torch, np, run["reqs"][:2], run["results"],
+                               dev)
+
+    def dec(p, impl, forced=None, dtype=torch.bfloat16):
+        return routed_decode(torch, tm, moe_mod, p, cfg, toks, impl, dtype,
+                             forced)
+
+    d_kern, r_dk = dec(params, "flash")
+    top = d_kern.argmax(-1)
+    agree = 0
+    for i, r in enumerate(run["reqs"][:2]):
+        out = run["results"][r.uid]
+        P = len(r.prompt)
+        agree += int((top[i, P - 1:P - 1 + len(out)].cpu()
+                      == torch.tensor(out)).sum())
+    d_kern = d_kern[mask]
+    d_plain = dec(params, "xla", r_dk)[0][mask]
+    r_dp = dec(params, "xla")[1]
+    check(bool(torch.isfinite(d_kern).all()),
+          f"{cfg.name}: non-finite decode logits")
+    de = {"positions": d_kern.shape[0],
+          "own_route_flips_kernel_vs_plain":
+              int(route_flips(torch, r_dk, r_dp, n_moe).T[mask].sum()),
+          "served_tokens": sum(len(run["results"][r.uid])
+                               for r in run["reqs"][:2]),
+          "served_equal_kernel_chain_argmax": agree}
+    line = {"phase": "families_check", "leg": cfg.name, "ok": False,
+            "routes": "the kernel path's, in every path"}
+    if f32:
+        ref = fwd(ref_params, "xla", served_routes)[0]
+        pre["own_route_flips_kernel_vs_f32"] = int(route_flips(
+            torch, served_routes, fwd(ref_params, "xla")[1], n_moe).sum())
+        pre["kernels_max_abs_err_vs_f32"] = max(
+            (kern - ref).abs().max().item(),
+            (served - ref[last]).abs().max().item())
+        pre["plain_bf16_max_abs_err_vs_f32"] = (plain - ref).abs().max(
+            ).item()
+        del ref
+        d_ref = dec(ref_params, "xla", r_dk, torch.float32)[0][mask]
+        de["kernels_max_abs_err_vs_f32"] = (d_kern - d_ref).abs().max(
+            ).item()
+        de["plain_bf16_max_abs_err_vs_f32"] = (d_plain - d_ref).abs().max(
+            ).item()
+        line.update(prefill=pre, decode=de, ratio_limit=BF16_ERR_RATIO)
+        for what, e in (("prefill", pre), ("decode", de)):
+            check(e["kernels_max_abs_err_vs_f32"]
+                  <= BF16_ERR_RATIO * e["plain_bf16_max_abs_err_vs_f32"],
+                  f"{cfg.name} bf16 {what} logits: the kernels' error "
+                  f"exceeds {BF16_ERR_RATIO} x the plain bf16 path's: "
+                  f"{line}")
+    else:
+        pre["scaled_err"] = scaled_err(torch, kern, plain)
+        pre["served_scaled_err"] = scaled_err(torch, served, plain[last])
+        pre["flip_limit"] = LLAMA4_FLIP_SHARE * pre["positions"]
+        de["scaled_err"] = scaled_err(torch, d_kern, d_plain)
+        de["flip_limit"] = LLAMA4_FLIP_SHARE * de["positions"]
+        line.update(prefill=pre, decode=de, scaled_tol=LLAMA4_SCALED_TOL)
+        for e in (pre, de):
+            check(e["own_route_flips_kernel_vs_plain"] <= e["flip_limit"],
+                  f"{cfg.name} bf16 route flips: {line}")
+            check(max(e["scaled_err"], e.get("served_scaled_err", 0.0))
+                  <= LLAMA4_SCALED_TOL, f"{cfg.name} bf16 logits: {line}")
+    line["ok"] = True
+    emit(line)
+
+
+def ring_check(torch, np, tm, cfg, run, dev):
+    """A windowed float32 leg's ring buffer past its wrap, at full width:
+    two served requests teacher-forced through ``decode_step`` (K7) on a
+    cache of ``RING_CHECK_LEN`` positions, shorter than each request, so
+    ``slot = pos % S`` wraps, against ``forward(impl="xla")`` with the
+    window set to S (what a ring of S positions keeps), within
+    ``LM_TOL``."""
+    S = RING_CHECK_LEN
+    toks, mask = forced_tokens(torch, np, run["reqs"][:2], run["results"],
+                               dev)
+    check(int(mask.sum(1).min()) > S, f"{cfg.name}: a request of at most "
+                                      f"{S} tokens does not wrap the ring")
+    got = decode_chain(torch, tm, run["params"], cfg, toks, S, "flash",
+                       torch.float32)[mask]
+    plain, _ = tm.forward(run["params"],
+                          dataclasses.replace(cfg, attn_window=S),
+                          {"tokens": toks}, impl="xla")
+    check(bool(torch.isfinite(got).all()), f"{cfg.name}: non-finite ring "
+                                           f"decode logits")
+    err = (got - plain[mask]).abs().max().item()
+    line = {"phase": "families_check", "leg": cfg.name, "what": "ring wrap",
+            "ok": err <= LM_TOL, "ring_len": S,
+            "request_lengths": mask.sum(1).tolist(),
+            "positions": got.shape[0], "max_abs_err": err, "tol": LM_TOL}
+    check(line["ok"], f"{cfg.name}: ring decode differs from the windowed "
+                      f"plain forward: {line}")
+    emit(line)
+
+
+def families_phase(torch, np, tm, step, serving, kernels, kf, kd, moe_mod,
+                   get_arch, dev, seed):
+    """The ``family_kernel_rows`` lines, then each of ``FAMILY_LEGS`` at
+    full width with random weights from the seed: ``lm_phase`` (a timed
+    prefill, 8 requests on an 8-slot engine) with its counts set to 0
+    just before and read just after, a traced decode step, K6 and K7 at
+    the shapes the leg gave them (``lm_kernel_rows``, attention legs),
+    and the leg's checks (float32: ``lm_check`` on two requests, and
+    ``ring_check`` where the attention is windowed; bfloat16:
+    ``moe_check``)."""
+    t_phase = time.perf_counter()
+    family_kernel_rows(torch, np, kf, kd, dev, seed)
+    for arch, depth, dtype_name, batch, length, prefix in FAMILY_LEGS:
+        cfg = get_arch(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, num_layers=depth)
+        dtype = getattr(torch, dtype_name)
+        n_attn = sum(k in tm.ATTN_KINDS for k in tm.layer_kinds(cfg))
+        tap = RouteTap(torch, moe_mod) if "moe" in tm.layer_kinds(cfg) \
+            else None
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        seen, restore = record_attention_calls(kf, kd, max(n_attn, 1))
+        try:
+            run, metrics = lm_phase(torch, np, tm, step, serving, cfg, dev,
+                                    seed, prompt_len=length, batch=batch,
+                                    prefix_rows=prefix, dtype=dtype,
+                                    prefill_ctx=tap, **FAMILY_SERVE)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        finally:
+            restore()
+        emit({"phase": "families", "leg": arch, "cut_to_layers": depth,
+              **metrics, "launches": launches,
+              "seconds": time.perf_counter() - t0})
+        family_launch_check(tm, cfg, dtype, launches, arch)
+        check(bool(torch.isfinite(run["prefill_logits"]).all()),
+              f"{arch}: non-finite prefill logits")
+        eng = run["engine"]
+        emit({"phase": "families_trace", "leg": arch,
+              "what": "engine decode step, 8 slots",
+              **device_busy(torch, lambda: eng.step_fn(
+                  run["params"], eng.cur_tok, eng.cache, eng.lens,
+                  eng.generator), 3)})
+        if n_attn:
+            lm_kernel_rows(torch, np, kf, kd, seen, eng, case=arch)
+        del seen, eng
+        if dtype == torch.float32:
+            lm_check(torch, np, tm, cfg, run, dev, n_check=2,
+                     phase="families_check", leg=arch)
+            if cfg.attn_window:
+                ring_check(torch, np, tm, cfg, run, dev)
+        else:
+            moe_check(torch, np, tm, moe_mod, cfg, run, tap.routes, dev)
+        run = tap = None
+        torch.cuda.empty_cache()
+    emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
 
 
 def main() -> None:
@@ -2644,6 +3090,7 @@ def main() -> None:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import decode_attention as kd
     from repro_torch.kernels import flash_attention as kf
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as tm
     from repro_torch.training import step
 
@@ -2801,7 +3248,7 @@ def main() -> None:
 
     # the same weights and requests in bfloat16: counts from 0, read right
     # after
-    params16 = cast_params(run["params"], torch.bfloat16)
+    params16 = cast_params(run["params"], torch.bfloat16, tm.FLOAT32_LEAVES)
     del run, eng
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2839,6 +3286,11 @@ def main() -> None:
     del run
     torch.cuda.empty_cache()
     launches["flash_attention_sm90"] = bf16_launches["flash_attention_sm90"]
+
+    # the five families past dense: each leg's counts from 0, read right
+    # after it
+    families_phase(torch, np, tm, step, serving, kernels, kf, kd, moe_mod,
+                   get_arch, dev, args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {

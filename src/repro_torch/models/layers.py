@@ -2,8 +2,7 @@
 ``repro.models.layers``).
 
 ``repro``'s versions pin activations to a device mesh with sharding
-constraints; the port runs on one card and has none.  ``causal_conv1d``
-comes with the ssm and rglru families (ROADMAP queue 1, item 9).
+constraints; the port runs on one card and has none.
 """
 from __future__ import annotations
 
@@ -48,6 +47,30 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
 
 
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv: x (B, L, C), w (C, W) -> (B, L, C) in x's
+    type, ``out[l] = sum_i x[l - W + 1 + i] * w[:, i]`` with zeros before
+    the start.  A loop over the W taps summed in float32, not
+    ``F.conv1d``: cuDNN would take TF32 on the card by default."""
+    W, L = w.shape[-1], x.shape[1]
+    xp = F.pad(x, (0, 0, W - 1, 0)).to(torch.float32)
+    wf = w.to(torch.float32)
+    out = xp[:, :L] * wf[:, 0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + L] * wf[:, i]
+    return out.to(x.dtype)
+
+
+def causal_conv1d_step(x_t: torch.Tensor, conv_state: torch.Tensor,
+                       w: torch.Tensor):
+    """One decode step of ``causal_conv1d``: x_t (B, C), conv_state
+    (B, W-1, C) the last W-1 inputs.  Returns (y (B, C), the new state)."""
+    window = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B, W, C)
+    y = torch.einsum("bwc,cw->bc", window.to(torch.float32),
+                     w.to(torch.float32))
+    return y.to(x_t.dtype), window[:, 1:]
+
+
 def init_dense(shape: tuple, generator: torch.Generator,
                scale: float | None = None, dtype: torch.dtype = torch.float32
                ) -> torch.Tensor:
@@ -57,4 +80,4 @@ def init_dense(shape: tuple, generator: torch.Generator,
         scale = 1.0 / math.sqrt(shape[0])
     w = torch.randn(shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)

@@ -11,11 +11,23 @@ attention families; its code replays the prompt, and the port copies the
 code.
 
 The cache is written in place (``repro`` concatenates the committed
-slot's slice back into the old cache).  So a replay step also writes one
-stale K/V row at position ``lens[j]`` of every other slot j; slot j's
-next real step overwrites that row before its attention reads it, so
-tokens and logits are unchanged, and only cache entries at or past a
-slot's length can differ from ``repro``'s.
+slot's slice back into the old cache).  A replay step runs every slot,
+so for attention it also writes one stale K/V row at position
+``lens[j]`` (``lens[j] % S`` in a ring buffer) of every other slot j;
+slot j's next real step overwrites that row before its attention reads
+it, so tokens and logits are unchanged, and only cache entries at or
+past a slot's length can differ from ``repro``'s.  A recurrent state
+(``rec``, ``ssm``) has no such row: the replay step would advance every
+slot's conv window and h, so it passes ``decode_step`` a commit mask of
+the one slot, and every other slot's state stays bit for bit as it was.
+
+Every cache tensor has the slot axis second (``transformer``'s layout),
+so ``_reset_slot`` zeroes a slot by index and nothing here reads a
+tensor's shape to find that axis.  ``repro``'s engine does
+(``_reset_slot``, ``commit_tree``), and takes a tail layer's (B, W-1, C)
+conv window along its second axis when ``batch_slots == conv_width -
+1``; the port serves those slot counts as it serves every other
+(ROADMAP.md §3).
 """
 from __future__ import annotations
 
@@ -70,6 +82,9 @@ class ServeEngine:
                                 device=self.device)
         self.cur_tok = torch.zeros(batch_slots, dtype=torch.int32,
                                    device=self.device)
+        # row i: the commit mask of a replay step of slot i
+        self.one_slot = torch.eye(batch_slots, dtype=torch.bool,
+                                  device=self.device)
         self.slots: List[Optional[Request]] = [None] * batch_slots
         self.queue: List[Request] = []
         self.generator = torch.Generator(device=self.device)
@@ -89,9 +104,10 @@ class ServeEngine:
 
     def _reset_slot(self, slot: int) -> None:
         """Zero a slot's cache and length before re-use (the previous
-        occupant's K/V must not leak into the next request)."""
-        self.cache["k"][:, slot] = 0
-        self.cache["v"][:, slot] = 0
+        occupant's K/V and recurrent state must not leak into the next
+        request)."""
+        for x in transformer.cache_tensors(self.cache):
+            x[:, slot] = 0
         self.lens[slot] = 0
 
     def _admit(self) -> None:
@@ -107,12 +123,13 @@ class ServeEngine:
 
     def _step_single_slot(self, slot: int, token: int) -> None:
         # feed one prompt token for one slot: a full batched step that
-        # advances only that slot's length (the others' rows at their
-        # lengths are rewritten by their own next step; module docstring)
+        # advances only that slot's length and recurrent state (the
+        # others' K/V rows at their lengths are rewritten by their own
+        # next step; module docstring)
         toks = self.cur_tok.clone()
         toks[slot] = token
         self.step_fn(self.params, toks, self.cache, self.lens,
-                     self.generator)
+                     self.generator, commit=self.one_slot[slot])
         self.lens[slot] += 1
 
     def run(self, max_steps: int = 256) -> Dict[int, List[int]]:

@@ -4,10 +4,11 @@
 serving engine: greedy (``argmax``) at temperature 0, else a sample from
 ``softmax(logits / temperature)`` drawn with ``torch.multinomial`` on the
 caller's ``torch.Generator`` (its bits are not ``jax.random``'s).
-``make_prefill`` wraps ``transformer.prefill``.  Both pass ``impl`` down
-to the attention layers (None: the kernels on a CUDA device, the plain
-path on the CPU).  ``make_train_step`` and ``make_loss_fn`` wait for the
-training slice (ROADMAP queue 1, item 9).
+``make_prefill`` wraps ``transformer.prefill`` (the batch's
+``prefix_emb`` goes through with it).  Both pass ``impl`` down to the
+attention layers (None: the kernels on a CUDA device, the plain path on
+the CPU).  ``make_train_step`` and ``make_loss_fn`` wait for the
+training slice (ROADMAP queue 1, item 9.4).
 """
 from __future__ import annotations
 
@@ -21,13 +22,16 @@ from ..models import transformer
 
 def make_serve_step(cfg: ArchConfig, temperature: float = 0.0, *,
                     impl: Optional[str] = None) -> Callable:
-    """``serve_step(params, token, cache, cache_len, generator)`` ->
-    (next tokens (B,) int32, cache, logits (B, V))."""
+    """``serve_step(params, token, cache, cache_len, generator, commit)``
+    -> (next tokens (B,) int32, cache, logits (B, V)); ``commit`` goes to
+    ``transformer.decode_step``."""
     @torch.no_grad()
     def serve_step(params, token, cache, cache_len,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   commit: Optional[torch.Tensor] = None):
         logits, cache = transformer.decode_step(params, cfg, token, cache,
-                                                cache_len, impl=impl)
+                                                cache_len, impl=impl,
+                                                commit=commit)
         if temperature > 0.0:
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]

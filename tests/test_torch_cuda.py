@@ -1268,3 +1268,129 @@ def test_cuda_mesh_gloo_two_ranks_equal_nccl(cuda_mesh_runs):
         for key in ("ds", "dt", "qp", "qs", "tot"):
             assert np.array_equal(got["stats"][key], one["stats"][key]), key
         assert got["enum"] == one["enum"]
+
+
+# the five families past dense: each reduced config (and a tailed hybrid)
+FAMILY_CASES = ["phi3_vision_4p2b", "musicgen_large", "qwen3_moe_30b_a3b",
+                "llama4_maverick_400b_a17b", "mamba2_780m",
+                "recurrentgemma_9b", "recurrentgemma_9b_tail"]
+FAMILY_TOL = 2e-3            # logits of order 1, float32, a few layers
+
+
+def _family_cfg(case):
+    from repro_torch.configs import get_arch
+    if case == "recurrentgemma_9b_tail":
+        return dataclasses.replace(get_arch("recurrentgemma_9b").reduced(),
+                                   num_layers=5)
+    return get_arch(case).reduced()
+
+
+def _params_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _params_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_params_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_cuda_family_kernel_path_equals_plain(cuda, case):
+    """Forward, prefill (with the frontend's prefix where there is one)
+    and a decode chain past the reduced window on the kernel path (K6,
+    K7) against the plain path on the card; K6 and K7 launch once per
+    attention layer, and never for mamba2."""
+    cfg = _family_cfg(case)
+    params = ttf.init_params(cfg, 0, device=cuda)
+    n_attn = sum(k in ttf.ATTN_KINDS for k in ttf.layer_kinds(cfg))
+    assert (n_attn == 0) == (cfg.family == "ssm")
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab, (2, 40), generator=gen, device=cuda)
+    batch = {"tokens": toks}
+    if cfg.frontend != "none":
+        batch["prefix_emb"] = torch.randn((2, 4, cfg.d_model), generator=gen,
+                                          device=cuda)
+    plain, paux = ttf.forward(params, cfg, batch, impl="xla")
+    before = _k6_launches()
+    got, gaux = ttf.forward(params, cfg, batch, impl="flash")
+    assert _k6_launches() == before + n_attn
+    assert (got - plain).abs().max().item() <= FAMILY_TOL
+    assert abs(float(gaux["moe_balance"]) - float(paux["moe_balance"])) \
+        <= 1e-5
+    logits, _, _ = ttf.prefill(params, cfg, batch)
+    assert (logits[:, 0] - plain[:, -1]).abs().max().item() <= FAMILY_TOL
+    caches = [ttf.init_cache(cfg, 2, 32, device=cuda) for _ in range(2)]
+    lens = torch.tensor([0, 3], dtype=torch.int32, device=cuda)
+    for i in range(20):
+        before = kd.launches
+        lg_k, _ = ttf.decode_step(params, cfg, toks[:, i], caches[0], lens,
+                                  impl="flash")
+        assert kd.launches == before + n_attn
+        lg_p, _ = ttf.decode_step(params, cfg, toks[:, i], caches[1], lens,
+                                  impl="xla")
+        assert (lg_k - lg_p).abs().max().item() <= FAMILY_TOL
+        lens = lens + 1
+    for a, b in zip(ttf.cache_tensors(caches[0]),
+                    ttf.cache_tensors(caches[1])):
+        assert (a - b).abs().max().item() <= FAMILY_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FAMILY_CASES)
+def test_cuda_family_serve_engine_equals_cpu(cuda, case):
+    """The same weights served on the card (kernels) and on the CPU
+    (plain path): the same greedy tokens and engine steps at 2 slots."""
+    cfg = _family_cfg(case)
+    params = ttf.init_params(cfg, 1, device="cpu")
+    prompts = [[5, 9, 13, 7, 3], [2, 7, 11], [40, 41, 42, 43], [3]]
+    outs = []
+    for p, dev in ((params, "cpu"), (_params_to(params, cuda), cuda)):
+        eng = ServeEngine(cfg, p, batch_slots=2, max_len=32, device=dev)
+        for uid, pr in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=np.asarray(pr, np.int32),
+                               max_tokens=6))
+        outs.append((eng.run(), eng.steps_run))
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mamba2_780m", "recurrentgemma_9b_tail"])
+def test_cuda_replay_leaves_other_slots_state_bit_identical(cuda, case):
+    """A replay step on the card leaves every other slot's conv window
+    and h bit for bit as they were, and advances its own."""
+    cfg = _family_cfg(case)
+    eng = ServeEngine(cfg, ttf.init_params(cfg, 2, device=cuda),
+                      batch_slots=3, max_len=32, device=cuda)
+    for slot, tok in ((0, 5), (1, 9), (2, 13)):
+        eng._step_single_slot(slot, tok)
+    kind = "ssm" if cfg.family == "ssm" else "rec"
+    before = [x.clone() for x in eng.cache[kind]]
+    eng._step_single_slot(1, 21)
+    for x, y in zip(eng.cache[kind], before):
+        assert torch.equal(x[:, 0], y[:, 0])
+        assert torch.equal(x[:, 2], y[:, 2])
+        assert not torch.equal(x[:, 1], y[:, 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_d256_one_kv_head_windowed(cuda, dtype):
+    """recurrentgemma's attention: 16 query heads over one KV head of
+    256, a window; K6 causal with the window across KV tiles, and K7
+    over a ring buffer of S = window positions, rows past the window
+    (valid length min(pos + 1, S)) and inside it."""
+    H, D, W = 16, 256, 100
+    q = _normal((1, 333, H, D), 1, dtype, cuda)
+    k = _normal((1, 333, 1, D), 2, dtype, cuda)
+    v = _normal((1, 333, 1, D), 3, dtype, cuda)
+    got = kf.flash_attention(q, k, v, causal=True, window=W)
+    want = kf.flash_attention_plain(q, k, v, causal=True, window=W)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+    pos = torch.tensor([5, 99, 100, 250], dtype=torch.int32, device=cuda)
+    lengths = torch.clamp(pos + 1, max=W)
+    qd = _normal((4, H, D), 4, dtype, cuda)
+    kc = _normal((4, W, 1, D), 5, dtype, cuda)
+    vc = _normal((4, W, 1, D), 6, dtype, cuda)
+    got = kd.decode_attention(qd, kc, vc, lengths)
+    want = kd.decode_attention_plain(qd, kc, vc, lengths)
+    assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]

@@ -204,16 +204,37 @@ def test_attention_module_matches_repro_both_impls():
                                   "recurrentgemma_9b", "phi3_vision_4p2b",
                                   "musicgen_large"])
 def test_other_families_raise(arch):
+    """The families past dense raise no NotImplementedError any more
+    (tests/test_torch_families.py holds them against ``repro``): every
+    entry point runs on the CPU, and what raises now is a parameter list
+    that does not fit the config's layer plan."""
     cfg = tconfigs.get_arch(arch).reduced()
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ttf.init_params(cfg, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ttf.init_cache(cfg, 1, 8, device="cpu")
-    dense = tconfigs.get_arch("internlm2_1p8b").reduced()
-    params = ttf.init_params(dense, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        ttf.forward(params, cfg, {"tokens": torch.zeros(1, 4,
-                                                         dtype=torch.long)})
+    params = ttf.init_params(cfg, 0, device="cpu")
+    assert len(params["layers"]) == cfg.num_layers
+    toks = torch.zeros(1, 4, dtype=torch.long)
+    logits, aux = ttf.forward(params, cfg, {"tokens": toks})
+    assert logits.shape == (1, 4, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+    assert set(aux) == {"moe_balance"}
+    cache = ttf.init_cache(cfg, 1, 8, device="cpu")
+    lg, cache = ttf.decode_step(params, cfg, toks[:, 0], cache,
+                                torch.zeros(1, dtype=torch.int32))
+    assert torch.allclose(lg, logits[:, 0], atol=DECODE_ATOL)
+    short = {**params, "layers": params["layers"][:-1]}
+    with pytest.raises(ValueError, match="layers for a plan of"):
+        ttf.forward(short, cfg, {"tokens": toks})
+
+
+def test_forward_aux_matches_repro(model):
+    """``forward``'s aux is ``repro``'s: ``{"moe_balance"}``, a float32
+    0 for the dense family."""
+    cfg, jparams, tparams = model
+    toks = _tokens(cfg, 1, 8)
+    _, jaux = jtf.forward(jparams, cfg, {"tokens": jnp.asarray(toks)})
+    _, taux = ttf.forward(tparams, cfg, {"tokens": torch.from_numpy(toks)})
+    assert set(taux) == set(jaux) == {"moe_balance"}
+    assert taux["moe_balance"].dtype == torch.float32
+    assert float(taux["moe_balance"]) == float(jaux["moe_balance"]) == 0.0
 
 
 def test_init_params_shapes_and_seed():
