@@ -178,11 +178,32 @@ Phases, one JSON line each (``{"phase": ...}``):
    qwen3-moe under ``lm_bf16_check``'s rule at all 48 layers (its
    float32 reference casts each layer when it reads it), llama4 against
    the plain bfloat16 path.
+16. ``train`` — LM training through ``Trainer.fit``, float32 with TF32
+   off.  ``train``: llama3.2-1b at full width and depth (16 layers, d
+   2048, vocab 128,256, 1.24 B parameters), float32 AdamW state, remat,
+   ``SyntheticLM`` 8 × 1024 tokens, 6 steps: seconds a step (median of
+   steps 2–6), tokens/s, loss and grad_norm a step, stragglers, peak
+   ``max_memory_allocated``, finite values and moved parameters; then
+   ``train_microbatches``: the first step with ``microbatches=2``
+   against 1 (loss within 1e-5, grad_norm within 1e-4 relative) and a
+   traced step.  ``train_ssm``: mamba2-780m at full width (48 SSD
+   layers, chunks of 128), 2 steps of 2 × 512.  ``train_restart``:
+   ``launch.train``'s lm100m preset, 8 steps with ``ckpt_every=4`` into
+   a temporary directory (deleted afterwards), the restored tree equal
+   to the saved one bit for bit, a second Trainer that resumes at step 8
+   and runs to 12, and two uninterrupted 12-step runs: the restart's
+   parameters within ``TRAIN_RESTART_LR_FRACTION`` of the summed
+   learning rate, or ``TRAIN_RESTART_SPREAD`` times the two fresh runs'
+   own spread where that is larger.  ``train_corpus``:
+   ``launch.train.main`` with ``--data path_corpus`` on the card, the
+   corpus's batches on the card equal to the CPU's, K1's hop entry
+   launched.  Then ``train_check``: no K6 or K7 launch in the phase,
+   and both raise on CUDA inputs that require grad.
 
 The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 7, phase 8, the
-``mesh_1`` leg of phase 9, phase 11, phase 13 and each leg of phase 15,
-each read just after its phase or leg.  K5 is held against its plain
+``mesh_1`` leg of phase 9, phase 11, phase 13, each leg of phase 15 and
+phase 16, each read just after its phase or leg.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -3044,6 +3065,318 @@ def families_phase(torch, np, tm, step, serving, kernels, kf, kd, moe_mod,
     emit({"phase": "families_done", "seconds": time.perf_counter() - t_phase})
 
 
+# the training phase (16): legs and their sizes
+TRAIN_ARCH = "llama3p2_1b"
+TRAIN_LEG = dict(seq_len=1024, global_batch=8, steps=6)
+TRAIN_SSM_ARCH = "mamba2_780m"
+TRAIN_SSM_LEG = dict(seq_len=512, global_batch=2, steps=2)
+TRAIN_RESTART_LEG = dict(seq_len=512, global_batch=8, steps=12, ckpt_every=4,
+                         stop_at=8)
+# twelve steps: on the launcher's graph (power_law(2000, 6.0, seed=1),
+# k = 5) only some batches find a path in their 32 draws (steps 5 and 10
+# of these), the rest are all EOS, as in repro (ROADMAP.md §3)
+TRAIN_CORPUS_ARGS = ["--preset", "lm100m", "--data", "path_corpus",
+                     "--steps", "12", "--batch", "8", "--seq", "128"]
+# microbatches=2 against 1 on the same first step: float32 sums of two
+# half-batch gradients against one (the mean over the same tokens)
+TRAIN_MB_LOSS_RTOL = 1e-5
+TRAIN_MB_GNORM_RTOL = 1e-4
+# a restart against an uninterrupted run: entries with a real gradient
+# are held within this fraction of the summed learning rate (the CPU
+# tests' rule, tests/test_torch_training.py), unless two fresh runs of
+# the card already differ by more (the embedding's backward accumulates
+# with atomics, whose order changes from run to run): then within
+# TRAIN_RESTART_SPREAD times that measured spread
+TRAIN_RESTART_LR_FRACTION = 1e-2
+TRAIN_RESTART_SPREAD = 4.0
+
+
+def tree_max_diff(torch, tree_mod, a, b) -> float:
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(tree_mod.leaves(a), tree_mod.leaves(b)))
+
+
+def train_log_summary(np, tr, tokens_per_step):
+    """A trainer's losses, grad norms and step seconds from its
+    ``metrics_log`` (every step logged); the median over steps 2 on."""
+    log = tr.metrics_log
+    secs = [r["sec_per_step"] for r in log]
+    steady = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+    for r in log:
+        check(bool(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])),
+              f"non-finite loss or grad_norm at step {r['step']}")
+    return {"loss": [r["loss"] for r in log],
+            "grad_norm": [r["grad_norm"] for r in log],
+            "lr": [r["lr"] for r in log], "sec_per_step": secs,
+            "median_sec_per_step": steady,
+            "tokens_per_s": tokens_per_step / steady,
+            "stragglers": tr.straggler_steps}
+
+
+def train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
+              get_arch, dev, seed):
+    """``train``: TRAIN_ARCH at full width and depth, float32 parameters
+    and AdamW state, remat on, through ``Trainer.fit``; then the first
+    step again with ``microbatches=2`` against 1, and a traced step."""
+    cfg = get_arch(TRAIN_ARCH)
+    leg = TRAIN_LEG
+    data = pipe.SyntheticLM(vocab=cfg.vocab, seq_len=leg["seq_len"],
+                            global_batch=leg["global_batch"], seed=seed)
+    opt_cfg = adamw.OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                                    total_steps=leg["steps"])
+    tcfg = tr_mod.TrainerConfig(steps=leg["steps"], log_every=1, seed=seed,
+                                device=dev)
+    probe = tm.init_params(cfg, seed, device=dev)
+    before = {k: probe[k][:8].clone() for k in ("embed",)}
+    before["wq0"] = probe["layers"][0]["attn"]["wq"][:8].clone()
+    n_params = sum(x.numel() for x in tree_mod.leaves(probe))
+    del probe
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    tr = tr_mod.Trainer(cfg, opt_cfg, tcfg)
+    t0 = time.perf_counter()
+    params, opt_state = tr.fit(data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    moved = (not torch.equal(before["embed"], params["embed"][:8])
+             and not torch.equal(before["wq0"],
+                                 params["layers"][0]["attn"]["wq"][:8]))
+    check(moved, "train: the parameters did not move")
+    tokens = leg["seq_len"] * leg["global_batch"]
+    summary = train_log_summary(np, tr, tokens)
+    emit({"phase": "train", "leg": "train", "arch": cfg.name,
+          "params": n_params, "dtype": "float32", "remat": cfg.remat,
+          "tokens_per_step": tokens, **summary, "fit_s": fit_s,
+          "peak_memory_allocated": peak, "params_moved": moved})
+    del params, opt_state, tr
+    torch.cuda.empty_cache()
+
+    # the first step with microbatches=2 against 1, then a traced step
+    p0 = tm.init_params(cfg, seed, device=dev)
+    st = adamw.init(p0)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in data.batch_at(0).items()}
+    got = {}
+    for mb in (1, 2):
+        fn = step_mod.make_train_step(cfg, opt_cfg, microbatches=mb)
+        _, _, m = fn(p0, st, batch)
+        got[mb] = {k: float(v) for k, v in m.items()}
+    loss_rel = abs(got[2]["loss"] - got[1]["loss"]) / abs(got[1]["loss"])
+    gn_rel = abs(got[2]["grad_norm"] - got[1]["grad_norm"]) \
+        / got[1]["grad_norm"]
+    fn = step_mod.make_train_step(cfg, opt_cfg)
+    trace = device_busy(torch, lambda: fn(p0, st, batch), 1)
+    emit({"phase": "train", "leg": "train_microbatches",
+          "mb1": got[1], "mb2": got[2], "loss_rel": loss_rel,
+          "grad_norm_rel": gn_rel, "fit_step0_loss": summary["loss"][0],
+          "trace": trace})
+    check(loss_rel <= TRAIN_MB_LOSS_RTOL,
+          f"train: microbatches=2 loss off by {loss_rel}")
+    check(gn_rel <= TRAIN_MB_GNORM_RTOL,
+          f"train: microbatches=2 grad_norm off by {gn_rel}")
+    del p0, st, batch, fn
+    torch.cuda.empty_cache()
+
+
+def train_ssm_leg(torch, np, tr_mod, adamw, pipe, get_arch, dev, seed):
+    """``train_ssm``: TRAIN_SSM_ARCH at full width (48 SSD layers, chunks
+    of 128), float32, through ``Trainer.fit``."""
+    cfg = get_arch(TRAIN_SSM_ARCH)
+    leg = TRAIN_SSM_LEG
+    data = pipe.SyntheticLM(vocab=cfg.vocab, seq_len=leg["seq_len"],
+                            global_batch=leg["global_batch"], seed=seed)
+    tr = tr_mod.Trainer(cfg, adamw.OptimizerConfig(
+        peak_lr=3e-4, warmup_steps=1, total_steps=leg["steps"]),
+        tr_mod.TrainerConfig(steps=leg["steps"], log_every=1, seed=seed,
+                             device=dev))
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr.fit(data)
+    torch.cuda.synchronize()
+    emit({"phase": "train", "leg": "train_ssm", "arch": cfg.name,
+          "ssm_chunk": cfg.ssm_chunk, "layers": cfg.num_layers,
+          **train_log_summary(np, tr, leg["seq_len"] * leg["global_batch"]),
+          "fit_s": time.perf_counter() - t0,
+          "peak_memory_allocated": torch.cuda.max_memory_allocated(dev)})
+    torch.cuda.empty_cache()
+
+
+def train_restart_leg(torch, np, tr_mod, adamw, pipe, ckpt_mod, tree_mod,
+                      lm100m, dev, seed):
+    """``train_restart``: the lm100m preset, ``ckpt_every`` checkpoints
+    into a temporary directory (deleted afterwards), a second Trainer
+    that resumes, and two uninterrupted runs (their spread sets the
+    tolerance)."""
+    import shutil
+    import signal
+    import tempfile
+
+    leg = TRAIN_RESTART_LEG
+    data = pipe.SyntheticLM(vocab=lm100m.vocab, seq_len=leg["seq_len"],
+                            global_batch=leg["global_batch"], seed=seed)
+    opt_cfg = adamw.OptimizerConfig(peak_lr=1e-3, warmup_steps=2,
+                                    total_steps=leg["steps"])
+
+    def trainer(steps, ckpt_dir=None):
+        return tr_mod.Trainer(lm100m, opt_cfg, tr_mod.TrainerConfig(
+            steps=steps, ckpt_every=leg["ckpt_every"], ckpt_dir=ckpt_dir,
+            log_every=1, seed=seed, device=dev))
+
+    tmp = tempfile.mkdtemp(prefix="train_restart_")
+    t0 = time.perf_counter()
+    try:
+        first = trainer(leg["stop_at"], tmp)
+        p_stop, o_stop = first.fit(data)
+        mgr = ckpt_mod.CheckpointManager(tmp)
+        t1 = time.perf_counter()
+        trees, manifest = mgr.restore(leg["stop_at"],
+                                      {"params": p_stop, "opt": o_stop})
+        restore_s = time.perf_counter() - t1
+        saved = tree_mod.leaves({"params": p_stop, "opt": o_stop})
+        back = tree_mod.leaves(trees)
+        bitwise = all(a.dtype == b.dtype and a.device == b.device
+                      and torch.equal(a, b) for a, b in zip(back, saved))
+        ckpt_bytes = sum(os.path.getsize(os.path.join(dp, f))
+                         for dp, _, fs in os.walk(mgr.directory)
+                         for f in fs if dp.endswith(
+                             f"step-{leg['stop_at']:010d}"))
+        del trees, back, saved, p_stop, o_stop
+        second = trainer(leg["steps"], tmp)
+        p_resumed, _ = second.fit(data)
+        resumed_at = second.metrics_log[0]["step"]
+        latest = mgr.latest_step()
+    finally:
+        signal.signal(signal.SIGTERM, signal.SIG_DFL)
+        shutil.rmtree(tmp, ignore_errors=True)
+    ckpt_s = time.perf_counter() - t0
+    fresh = [trainer(leg["steps"]) for _ in range(2)]
+    p_a, _ = fresh[0].fit(data)
+    p_b, _ = fresh[1].fit(data)
+    spread = tree_max_diff(torch, tree_mod, p_a, p_b)
+    restart_diff = tree_max_diff(torch, tree_mod, p_resumed, p_a)
+    lr_total = sum(r["lr"] for r in fresh[0].metrics_log)
+    tol = max(TRAIN_RESTART_LR_FRACTION * lr_total,
+              TRAIN_RESTART_SPREAD * spread)
+    losses_equal = [r["loss"] for r in second.metrics_log] == [
+        r["loss"] for r in fresh[0].metrics_log[leg["stop_at"]:]]
+    emit({"phase": "train", "leg": "train_restart", "arch": lm100m.name,
+          "stop_at": leg["stop_at"], "steps": leg["steps"],
+          "resumed_at": resumed_at, "latest_step": latest,
+          "checkpoint_bytes": ckpt_bytes, "restore_s": restore_s,
+          "restored_bit_identical": bitwise,
+          "manifest_extra": manifest["extra"],
+          "fresh_spread_max_abs": spread,
+          "restart_max_abs_diff": restart_diff, "tolerance": tol,
+          "lr_total": lr_total, "resumed_losses_equal_fresh": losses_equal,
+          "checkpointed_runs_s": ckpt_s,
+          "sec_per_step": statistics.median(
+              r["sec_per_step"] for r in fresh[0].metrics_log[1:])})
+    check(bitwise, "train_restart: the restored tree differs from the saved")
+    check(resumed_at == leg["stop_at"],
+          f"train_restart: resumed at {resumed_at}, not {leg['stop_at']}")
+    check(latest == leg["steps"], f"train_restart: latest step {latest}")
+    check(restart_diff <= tol,
+          f"train_restart: restart off by {restart_diff} (tolerance {tol})")
+    del p_a, p_b, p_resumed, fresh
+    torch.cuda.empty_cache()
+
+
+def train_corpus_leg(torch, kernels, pipe, train_main, tc, dev):
+    """``train_corpus``: ``launch.train.main`` on the lm100m preset with
+    ``--data path_corpus`` on the card (its PathCorpus walks on K1's hop
+    entry), then the corpus's batches on the card against the CPU's."""
+    import io
+    import tempfile
+
+    before = kernels.launch_counts()
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        metrics = os.path.join(tmp, "metrics.json")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            train_main(TRAIN_CORPUS_ARGS + ["--device", str(dev),
+                                            "--metrics-out", metrics])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with open(metrics) as fh:
+            rec = json.load(fh)
+    after = kernels.launch_counts()
+    launches = {n: after[n] - before[n] for n in PATHENUM_KERNELS}
+    steps = int(TRAIN_CORPUS_ARGS[TRAIN_CORPUS_ARGS.index("--steps") + 1])
+    seq = int(TRAIN_CORPUS_ARGS[TRAIN_CORPUS_ARGS.index("--seq") + 1])
+    batch = int(TRAIN_CORPUS_ARGS[TRAIN_CORPUS_ARGS.index("--batch") + 1])
+    g = tc.power_law(2000, 6.0, seed=1)
+    corpora = [pipe.PathCorpus(graph=g, k=5, seq_len=seq, global_batch=batch,
+                               device=d) for d in (dev, "cpu")]
+    same = all(
+        a[key].tobytes() == b[key].tobytes()
+        for s in range(steps)
+        for a, b in [(corpora[0].batch_at(s), corpora[1].batch_at(s))]
+        for key in ("tokens", "labels"))
+    with_paths = [s for s in range(steps)
+                  if (corpora[1].batch_at(s)["tokens"] == pipe.BOS).any()]
+    emit({"phase": "train", "leg": "train_corpus", "args": TRAIN_CORPUS_ARGS,
+          "params": rec["params"], "log": rec["log"], "wall_s": wall,
+          "stdout_lines": len(out.getvalue().splitlines()),
+          "launches": launches, "batches_equal_cpu": same,
+          "steps_with_paths": with_paths})
+    check(all(torch.isfinite(torch.tensor(r["loss"])) for r in rec["log"]),
+          "train_corpus: non-finite loss")
+    check(same, "train_corpus: PathCorpus on the card differs from the CPU")
+    check(launches["frontier_hop"] > 0,
+          "train_corpus: K1's hop entry never launched")
+
+
+def train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, seed):
+    """Phase 16: LM training on the card (``train``, ``train_ssm``,
+    ``train_restart``, ``train_corpus``), counts from 0 before it and
+    read after it, then ``train_check``."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.checkpoint import manager as ckpt_mod
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import transformer as tm
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as step_mod
+    from repro_torch.training import trainer as tr_mod
+
+    t_phase = time.perf_counter()
+    kernels.reset_launch_counts()
+    train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
+              get_arch, dev, seed)
+    train_ssm_leg(torch, np, tr_mod, adamw, pipe, get_arch, dev, seed)
+    lm100m = train_launch.build_arch(argparse.Namespace(preset="lm100m",
+                                                        arch=None))
+    train_restart_leg(torch, np, tr_mod, adamw, pipe, ckpt_mod, tree_mod,
+                      lm100m, dev, seed)
+    train_corpus_leg(torch, kernels, pipe, train_launch.main, tc, dev)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+
+    refused = {}
+    q = torch.randn(1, 64, 2, 64, device=dev, requires_grad=True)
+    k = torch.randn(1, 64, 1, 64, device=dev)
+    lengths = torch.full((1,), 64, dtype=torch.int32, device=dev)
+    for name, call in (
+            ("flash_attention", lambda: kf.flash_attention(q, k, k)),
+            ("decode_attention", lambda: kd.decode_attention(
+                q[:, 0].detach().contiguous().requires_grad_(True), k, k,
+                lengths))):
+        try:
+            call()
+            refused[name] = False
+        except RuntimeError as e:
+            refused[name] = "no backward" in str(e)
+    emit({"phase": "train_check", "launches": launches,
+          "refused_under_grad": refused,
+          "seconds": time.perf_counter() - t_phase})
+    for name in LM_KERNELS + LM_BF16_KERNELS:
+        check(launches[name] == 0, f"{name} launched in the train phase")
+    for name, ok in refused.items():
+        check(ok, f"{name} did not refuse CUDA inputs that require grad")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3291,6 +3624,9 @@ def main() -> None:
     # after it
     families_phase(torch, np, tm, step, serving, kernels, kf, kd, moe_mod,
                    get_arch, dev, args.seed)
+
+    # LM training: counts from 0, read right after
+    train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, args.seed)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {

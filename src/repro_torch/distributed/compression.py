@@ -21,11 +21,12 @@ later work (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import Callable, List, Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.distributed as dist
 
+from .. import tree as tree_mod
 from .wire import ReduceOp, Wire
 
 
@@ -50,24 +51,6 @@ def quantize_with_feedback(x: torch.Tensor, residual: torch.Tensor):
     return q, scale, target - dequantize(q, scale)
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [x for key in tree for x in _leaves(tree[key])]
-    if isinstance(tree, (list, tuple)):
-        return [x for item in tree for x in _leaves(item)]
-    return [tree]
-
-
-def _rebuild(tree, leaves):
-    """``tree`` with its leaves replaced, in ``_leaves``'s order, from
-    the iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {key: _rebuild(tree[key], leaves) for key in tree}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(item, leaves) for item in tree)
-    return next(leaves)
-
-
 def compressed_all_reduce(tree, group: dist.ProcessGroup):
     """The sum over ``group`` of a tree (dicts, lists, tuples) of float32
     tensors, each carried as int8 values on a grid shared by the ranks.
@@ -83,7 +66,7 @@ def compressed_all_reduce(tree, group: dist.ProcessGroup):
         q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int32)
         return wire.all_reduce(q, ReduceOp.SUM).to(torch.float32) * scale
 
-    return _rebuild(tree, iter([one(x) for x in _leaves(tree)]))
+    return tree_mod.tree_map(one, tree)
 
 
 def make_compressed_grad_fn(loss_fn: Callable, group: dist.ProcessGroup):
@@ -100,13 +83,14 @@ def make_compressed_grad_fn(loss_fn: Callable, group: dist.ProcessGroup):
     """
     def f(params, batch):
         wire = Wire(group)
-        leaves = [p.detach().requires_grad_(True) for p in _leaves(params)]
-        loss, _aux = loss_fn(_rebuild(params, iter(leaves)), batch)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_mod.leaves(params)]
+        loss, _aux = loss_fn(tree_mod.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
         loss = wire.all_reduce(loss.detach().reshape(1).clone(),
                                ReduceOp.SUM)[0] / wire.size
         grads = [g / wire.size for g in grads]
         return loss, compressed_all_reduce(
-            _rebuild(params, iter(grads)), group)
+            tree_mod.unflatten(params, grads), group)
 
     return f

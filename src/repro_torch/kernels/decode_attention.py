@@ -24,7 +24,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import check_inputs
+from .flash_attention import check_inputs, refuse_autograd
 
 # kernel launches since process start (chip_smoke.py resets and reads
 # them); one a wrapper call, the combine pass included
@@ -130,7 +130,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      scale: float | None = None) -> torch.Tensor:
     """q (B, H, D); k_cache, v_cache (B, S, Hkv, D); lengths (B,) integer
     on q's device.  Returns (B, H, D); ``scale`` defaults to
-    ``1 / sqrt(D)``."""
+    ``1 / sqrt(D)``.  On the card, inputs that autograd tracks raise
+    (``refuse_autograd``)."""
     global launches
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q must be (B, H, D) and the "
@@ -158,6 +159,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     if not q.is_cuda:
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       scale=scale)
+    refuse_autograd("decode_attention", {"q": q, "k_cache": k_cache,
+                                         "v_cache": v_cache})
     lens = lengths.to(torch.int32).contiguous()
     splits, chunk = decode_splits(
         B, Hkv, S,

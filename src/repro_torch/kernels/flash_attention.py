@@ -102,6 +102,18 @@ def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
                          f"{HEAD_DIMS}")
 
 
+def refuse_autograd(name: str, tensors: dict) -> None:
+    """Raise on CUDA inputs that autograd tracks: the kernels have no
+    backward (``repro``'s Pallas kernels have none either), and their
+    output would carry no ``grad_fn``.  Training takes ``impl="xla"``.
+    Shared with K7's wrapper."""
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in tensors.values()):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward; under autograd take the "
+            f"plain attention path (impl=\"xla\"), as training does")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     scale: float | None = None) -> torch.Tensor:
@@ -110,7 +122,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``window`` (applied only when ``causal``) keeps the columns with
     ``row + Lk - Lq - col < window``; ``scale`` defaults to
     ``1 / sqrt(D)``.  On the card the dtype picks the kernel: bfloat16
-    launches the ``wgmma`` kernel, float32 the split-TF32 kernel; a CPU tensor
+    launches the ``wgmma`` kernel, float32 the split-TF32 kernel, and
+    inputs that autograd tracks raise (``refuse_autograd``); a CPU tensor
     takes ``flash_attention_plain``."""
     global f32_launches, wgmma_launches
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
@@ -129,6 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
+    refuse_autograd("flash_attention", {"q": q, "k": k, "v": v})
     bf16 = q.dtype == torch.bfloat16
     out = torch.empty_like(q)
     status = _launcher(bf16)(

@@ -1,2 +1,3 @@
-"""Command-line entry points of the port (``repro.launch``): ``serve``.
-``train`` and ``dryrun`` wait for ROADMAP queue 1, items 9.6 and 9.7."""
+"""Command-line entry points of the port (``repro.launch``): ``serve``
+and ``train``.  ``mesh`` waits for ROADMAP queue 1, item 9.6, and
+``dryrun`` for item 9.7."""

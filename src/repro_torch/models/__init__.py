@@ -4,5 +4,5 @@ hand-written kernels K6 and K7."""
 from . import attention, layers, moe, rglru, ssm, transformer
 from .transformer import (cache_from_numpy, decode_step, forward,
                           forward_hidden, init_cache, init_params,
-                          layer_kinds, layer_plan, params_from_numpy,
-                          prefill)
+                          layer_kinds, layer_plan, loss_fn,
+                          params_from_numpy, prefill)

@@ -63,6 +63,17 @@ def ssd_forward(params: dict, x: torch.Tensor,
     return _ssd_forward_aligned(params, x, cfg)[:, :L]
 
 
+def _masked_decay(decay: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """exp(decay) where ``keep``, else 0, with the mask on the exponent:
+    the upper triangle's exp overflows to inf once a chunk's summed dt
+    passes 88.7, and a where on exp's result (``repro``'s
+    ``jnp.where(tri, jnp.exp(decay), 0)``) sends 0 · inf = NaN back
+    through exp's gradient.  exp(-inf) is exactly 0 and the kept entries
+    are the same, so the forward is bit-identical to ``repro``'s
+    expression."""
+    return torch.exp(torch.where(keep, decay, -torch.inf))
+
+
 def _ssd_forward_aligned(params: dict, x: torch.Tensor,
                          cfg: ArchConfig) -> torch.Tensor:
     Bsz, L, _ = x.shape
@@ -87,11 +98,10 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
     dt_c = dt.reshape(Bsz, nc, Q, nh)
 
     seg = torch.cumsum(dA_c, dim=2)            # (B, nc, Q, H) running decay
-    # intra-chunk: y[t] = sum_{s<=t} C_t·B_s exp(seg_t - seg_s) dt_s x_s;
-    # where, not a mask product: the upper triangle's exp is inf
+    # intra-chunk: y[t] = sum_{s<=t} C_t·B_s exp(seg_t - seg_s) dt_s x_s
     decay = seg[:, :, :, None, :] - seg[:, :, None, :, :]    # (B,nc,t,s,H)
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    gmat = torch.where(tri[None, None, :, :, None], torch.exp(decay), 0.0)
+    gmat = _masked_decay(decay, tri[None, None, :, :, None])
     cb = torch.einsum("bctn,bcsn->bcts", C_c, B_c)
     w = cb[..., None] * gmat * dt_c[:, :, None, :, :]          # (B,nc,t,s,H)
     y_intra = torch.einsum("bctsh,bcshp->bcthp", w, xs_c)

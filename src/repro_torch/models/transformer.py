@@ -32,8 +32,13 @@ the batch second.  ``decode_step`` writes into it in place and returns
 the same dict; its ``commit`` mask keeps chosen rows' recurrent states
 as they were (the serving engine's prompt replay).
 
-``repro``'s ``loss_fn`` waits for the training slice (ROADMAP queue 1,
-item 9.4).
+``loss_fn`` is ``repro``'s cross entropy over ``forward_hidden`` on the
+plain attention path (``impl="xla"``, ``repro``'s training path: the
+kernels have no backward).  With ``cfg.remat`` (the default) and grad
+enabled, ``forward_hidden`` runs each layer under
+``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on
+``repro``'s scan body: the same values, activations recomputed in the
+backward; under ``torch.no_grad`` nothing changes.
 """
 from __future__ import annotations
 
@@ -41,6 +46,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
@@ -307,8 +313,17 @@ def forward_hidden(params: Params, cfg: ArchConfig,
     x = _embed(params, cfg, batch)
     positions = _positions(x)
     balance = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
     for kind, blk in _layers(params, cfg):
-        x, _, bal = _block(blk, kind, x, cfg, positions, impl)
+        def layer(x, blk=blk, kind=kind):
+            x, _, bal = _block(blk, kind, x, cfg, positions, impl)
+            return x, bal
+        if remat:
+            # the forward draws no random numbers: no RNG state to keep
+            x, bal = checkpoint(layer, x, use_reentrant=False,
+                                preserve_rng_state=False)
+        else:
+            x, bal = layer(x)
         if bal is not None:
             balance = balance + bal
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -322,6 +337,34 @@ def forward(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],
     and the aux of ``forward_hidden``."""
     x, aux = forward_hidden(params, cfg, batch, impl=impl)
     return x @ _head(params, cfg), aux
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy, ``repro``'s formulation: logsumexp over
+    the float32 logits of positions ``:-1``, minus the label's logit as
+    ⟨hidden, ``head.T[label]``⟩, averaged over the positions whose label
+    is not negative; the moe family adds ``0.01 · moe_balance /
+    num_layers``.  Returns ``(loss, {"loss", "tokens"})``, ``tokens`` the
+    float32 count of labelled positions."""
+    x, aux = forward_hidden(params, cfg, batch, impl="xla")
+    labels = batch["labels"]
+    head = _head(params, cfg)
+
+    xs = x[:, :-1].to(torch.float32)
+    logits = xs @ head.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)                    # (B, S-1)
+
+    safe = torch.clamp(labels[:, 1:], min=0).long()
+    rows = head.T[safe].to(torch.float32)
+    lbl_logit = (xs * rows).sum(-1)
+
+    mask = (labels[:, 1:] >= 0).to(torch.float32)
+    loss = ((lse - lbl_logit) * mask).sum() / torch.clamp(mask.sum(),
+                                                          min=1.0)
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux["moe_balance"] / max(cfg.num_layers, 1)
+    return loss, {"loss": loss, "tokens": mask.sum()}
 
 
 def prefill(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor],

@@ -1,4 +1,13 @@
-"""Serve and prefill step factories (the port of ``repro.training.step``).
+"""Train, serve and prefill step factories (the port of
+``repro.training.step``).
+
+``make_train_step`` builds the update: loss -> gradients -> AdamW, with
+optional gradient accumulation over microbatches (float32 gradient sums
+over ``B / microbatches`` slices of the batch, a Python loop where
+``repro`` scans: peak activation memory scales with B / microbatches
+while the arithmetic is unchanged).  Gradients come from
+``torch.autograd.grad`` on ``detach().requires_grad_(True)`` views of
+the parameters, so the caller's tensors are never touched.
 
 ``make_serve_step`` builds the single-token decode step used by the
 serving engine: greedy (``argmax``) at temperature 0, else a sample from
@@ -7,8 +16,7 @@ caller's ``torch.Generator`` (its bits are not ``jax.random``'s).
 ``make_prefill`` wraps ``transformer.prefill`` (the batch's
 ``prefix_emb`` goes through with it).  Both pass ``impl`` down to the
 attention layers (None: the kernels on a CUDA device, the plain path on
-the CPU).  ``make_train_step`` and ``make_loss_fn`` wait for the
-training slice (ROADMAP queue 1, item 9.4).
+the CPU).
 """
 from __future__ import annotations
 
@@ -16,8 +24,71 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import tree as tree_mod
 from ..configs.base import ArchConfig
 from ..models import transformer
+from ..optim import adamw
+
+
+def make_loss_fn(cfg: ArchConfig) -> Callable:
+    """``loss(params, batch)`` -> ``(loss, {"loss", "tokens"})``, as
+    ``transformer.loss_fn``."""
+    def loss(params, batch):
+        return transformer.loss_fn(params, cfg, batch)
+    return loss
+
+
+def _value_and_grad(loss_fn: Callable, params, batch):
+    """(loss, metrics, gradients in the parameters' tree), the loss and
+    metrics detached."""
+    leaves = [p.detach().requires_grad_(True)
+              for p in tree_mod.leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(tree_mod.unflatten(params, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, tree_mod.unflatten(params, grads)
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptimizerConfig,
+                    microbatches: int = 1,
+                    unroll_accum: bool = False) -> Callable:
+    """``train_step(params, opt_state, batch)`` -> (new params, new
+    state, metrics): ``{"loss", "tokens", "lr", "grad_norm"}`` with one
+    microbatch, ``{"loss", "lr", "grad_norm"}`` with more, as ``repro``.
+    ``unroll_accum`` is ``repro``'s switch between its scan and a Python
+    loop; the port has only the loop, so both give the same result."""
+    del unroll_accum
+    loss_fn = make_loss_fn(cfg)
+
+    def train_step(params, opt_state, batch):
+        if microbatches <= 1:
+            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        else:
+            mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                + tuple(v.shape[1:]))
+                   for k, v in batch.items()}
+            gsum = [torch.zeros(p.shape, dtype=torch.float32,
+                                device=p.device)
+                    for p in tree_mod.leaves(params)]
+            lsum = None
+            for i in range(microbatches):
+                l, _, g = _value_and_grad(loss_fn, params,
+                                          {k: v[i] for k, v in mbs.items()})
+                gsum = [a + b.to(torch.float32)
+                        for a, b in zip(gsum, tree_mod.leaves(g))]
+                lsum = l if lsum is None else lsum + l
+            grads = tree_mod.unflatten(params,
+                                       [g / microbatches for g in gsum])
+            loss = lsum / microbatches
+            metrics = {"loss": loss}
+
+        new_params, new_opt, opt_metrics = adamw.update(
+            opt_cfg, grads, opt_state, params)
+        metrics = {**metrics, **opt_metrics, "loss": loss}
+        return new_params, new_opt, metrics
+
+    return train_step
 
 
 def make_serve_step(cfg: ArchConfig, temperature: float = 0.0, *,

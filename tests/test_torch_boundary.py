@@ -6,6 +6,9 @@
   caches, serving engine and launcher) default to ``device="cuda"``:
   without a CUDA device a default call raises instead of running on the
   CPU.
+* The training entry points (``Trainer``, ``PathCorpus``,
+  ``adamw.state_from_numpy``, the train launcher) default to ``"cuda"``
+  and raise without a card.
 * The HcPE front-ends (``HcPEServer``, ``AsyncHcPEServer``) build their
   engine on the card by default and raise without one.
 * No ``async def`` body in ``src/repro_torch/serving`` blocks the event
@@ -159,24 +162,29 @@ def test_cpu_tensors_take_the_plain_versions():
                                 max_deg=1)
 
 
+def _stacked(params):
+    """A dense config's port parameters as ``repro``'s numpy tree (the
+    layers stacked in ``supers["b0_attn"]``)."""
+    layers = params["layers"]
+    tree = {k: params[k].numpy() for k in ("embed", "final_norm", "head")
+            if k in params}
+    tree["supers"] = {"b0_attn": {
+        "ln1": np.stack([b["ln1"].numpy() for b in layers]),
+        "ln2": np.stack([b["ln2"].numpy() for b in layers]),
+        "attn": {n: np.stack([b["attn"][n].numpy() for b in layers])
+                 for n in ("wq", "wk", "wv", "wo")},
+        "mlp": {n: np.stack([b["mlp"][n].numpy() for b in layers])
+                for n in ("w_gate", "w_up", "w_down")}}}
+    return tree
+
+
 def test_lm_entry_points_default_to_cuda():
     """``init_params``, ``params_from_numpy``, ``init_cache``,
     ``cache_from_numpy``, ``ServeEngine`` and the serve launcher run on
     the card by default and raise without one."""
     cfg = get_arch("internlm2_1p8b").reduced()
     cpu = init_params(cfg, 0, device="cpu")
-    tree = {"embed": cpu["embed"].numpy(),
-            "final_norm": cpu["final_norm"].numpy(),
-            "head": cpu["head"].numpy(),
-            "supers": {"b0_attn": {
-                "ln1": np.stack([b["ln1"].numpy() for b in cpu["layers"]]),
-                "ln2": np.stack([b["ln2"].numpy() for b in cpu["layers"]]),
-                "attn": {n: np.stack([b["attn"][n].numpy()
-                                      for b in cpu["layers"]])
-                         for n in ("wq", "wk", "wv", "wo")},
-                "mlp": {n: np.stack([b["mlp"][n].numpy()
-                                     for b in cpu["layers"]])
-                        for n in ("w_gate", "w_up", "w_down")}}}}
+    tree = _stacked(cpu)
     shape = (cfg.num_layers, 1, 4, cfg.kv_heads, cfg.hd)
     ctree = {"supers": {"b0_attn": (np.zeros(shape, np.float32),
                                     np.zeros(shape, np.float32))}}
@@ -199,6 +207,49 @@ def test_lm_entry_points_default_to_cuda():
     assert all(torch.equal(a, b) for a, b in zip(
         (back["embed"], back["layers"][2]["mlp"]["w_up"]),
         (cpu["embed"], cpu["layers"][2]["mlp"]["w_up"])))
+
+
+def test_training_entry_points_default_to_cuda():
+    """``Trainer``, ``PathCorpus``, ``adamw.state_from_numpy`` and the
+    train launcher run on the card by default and raise without one; the
+    import scan covers the training modules."""
+    from repro_torch.data.pipeline import PathCorpus
+    from repro_torch.launch.train import main as train_main
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    assert {f"src/repro_torch/{m}.py" for m in (
+        "optim/adamw", "training/trainer", "training/step",
+        "checkpoint/manager", "data/pipeline", "launch/train",
+        "tree")} <= names
+    cfg = get_arch("llama3p2_1b").reduced()
+    g = tc.erdos_renyi(40, 4.0, seed=7)
+    cpu = init_params(cfg, 0, device="cpu")
+    state = adamw.init(cpu)
+    nstate = adamw.AdamWState(step=np.int32(2), mu=_stacked(cpu),
+                              nu=_stacked(cpu))
+    if torch.cuda.is_available():
+        assert Trainer(cfg, adamw.OptimizerConfig(),
+                       TrainerConfig()).device.type == "cuda"
+        assert PathCorpus(g, 4, 16, 2).device.type == "cuda"
+        assert adamw.state_from_numpy(cfg, nstate).step.is_cuda
+        return
+    assert TrainerConfig().device == "cuda"
+    for call in (lambda: Trainer(cfg, adamw.OptimizerConfig(),
+                                 TrainerConfig()),
+                 lambda: PathCorpus(g, 4, 16, 2),
+                 lambda: adamw.state_from_numpy(cfg, nstate),
+                 lambda: train_main(["--steps", "1"]),
+                 lambda: train_main(["--steps", "1", "--data",
+                                     "path_corpus"])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    back = adamw.state_from_numpy(cfg, nstate, device="cpu")
+    assert int(back.step) == 2 and back.step.dtype == torch.int32
+    assert torch.equal(back.mu["layers"][1]["mlp"]["w_up"],
+                       cpu["layers"][1]["mlp"]["w_up"])
+    assert state.step.device.type == "cpu"
 
 
 def test_hcpe_front_ends_default_to_cuda():

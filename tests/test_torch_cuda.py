@@ -1394,3 +1394,159 @@ def test_cuda_attention_d256_one_kv_head_windowed(cuda, dtype):
     got = kd.decode_attention(qd, kc, vc, lengths)
     want = kd.decode_attention_plain(qd, kc, vc, lengths)
     assert (got.float() - want.float()).abs().max().item() <= ATTN_TOL[dtype]
+
+
+# training (queue 1, items 9.4-9.5): a train step on the card against the
+# CPU; the attention kernels refuse autograd; checkpoints and PathCorpus
+TRAIN_CASES = ["tiny"] + [
+    "internlm2_1p8b", "llama3p2_1b", "mistral_large_123b", "starcoder2_7b"
+] + FAMILY_CASES
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+TRAIN_G_FLOOR = 1e-3
+
+
+def _train_cfg(case):
+    return TINY if case == "tiny" else _family_cfg(case)
+
+
+def _train_batch(cfg, dev, B=2, S=32):
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+    labels = toks.copy()
+    labels[0, S - 5:] = -1
+    batch = {"tokens": toks, "labels": labels}
+    if cfg.frontend != "none":
+        batch["prefix_emb"] = (rng.standard_normal(
+            (B, cfg.frontend_len, cfg.d_model)) * 0.02).astype(np.float32)
+    return {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRAIN_CASES)
+def test_cuda_train_step_equals_cpu(cuda, case):
+    """Loss, gradients and one AdamW step on the card against the CPU on
+    the same weights and batch, TF32 off.  Tolerances as the CPU's
+    against ``repro`` (tests/torch_train_parity.py): float32 sums in
+    other orders, and the embedding's backward accumulates with atomics
+    on the card; the updated parameters within 1e-2 of lr where the
+    gradient is at least ``TRAIN_G_FLOOR`` of its leaf's largest, within
+    3 lr elsewhere (AdamW's step is lr · sign(g) for a tiny g)."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.optim import adamw
+    from repro_torch.training import step as tstep
+
+    cfg = _train_cfg(case)
+    params = ttf.init_params(cfg, 0, device="cpu")
+    out = {}
+    for dev in ("cpu", cuda):
+        p = _params_to(params, dev)
+        batch = _train_batch(cfg, dev)
+        loss, _, grads = tstep._value_and_grad(tstep.make_loss_fn(cfg), p,
+                                               batch)
+        p2, _, m = tstep.make_train_step(
+            cfg, adamw.OptimizerConfig(total_steps=10))(
+                p, adamw.init(p), batch)
+        out[str(dev)] = (float(loss), _params_to(grads, "cpu"),
+                         _params_to(p2, "cpu"),
+                         {k: float(v) for k, v in m.items()})
+    (l0, g0, p0, m0), (l1, g1, p1, m1) = out["cpu"], out[str(cuda)]
+    np.testing.assert_allclose(l1, l0, rtol=TRAIN_LOSS_RTOL)
+    np.testing.assert_allclose(m1["grad_norm"], m0["grad_norm"], rtol=1e-4)
+    lr = m0["lr"]
+    assert m1["lr"] == lr
+    for (path, a), b, want, g in zip(tree_mod.leaves_with_path(p1),
+                                     tree_mod.leaves(p0),
+                                     tree_mod.leaves(g0),
+                                     tree_mod.leaves(g1)):
+        g, want = g.double(), want.double()
+        assert torch.isfinite(g).all(), path
+        assert float((g - want).abs().max()) \
+            <= TRAIN_GRAD_RTOL * float(want.abs().max()) + 1e-30, path
+        diff = (a.double() - b.double()).abs()
+        slack = 1e-6 * float(b.abs().max())
+        strong = want.abs() >= TRAIN_G_FLOOR * want.abs().max()
+        assert float(torch.where(strong, diff, 0).max()) <= 1e-2 * lr + slack
+        assert float(diff.max()) <= 3 * lr + slack, path
+
+
+@pytest.mark.cuda
+def test_cuda_attention_kernels_refuse_autograd(cuda):
+    """On CUDA inputs that require grad, K6 and K7 raise (they have no
+    backward) instead of returning a result detached from the graph;
+    under ``torch.no_grad`` they run, and the CPU's plain versions keep
+    working under autograd."""
+    q = _normal((1, 16, 2, 32), 1, torch.float32, cuda)
+    k = _normal((1, 16, 1, 32), 2, torch.float32, cuda)
+    v = _normal((1, 16, 1, 32), 3, torch.float32, cuda)
+    lengths = torch.tensor([16], dtype=torch.int32, device=cuda)
+    qd = q[:, 0].contiguous()
+    for arg in range(3):
+        xs = [q, k, v]
+        xs[arg] = xs[arg].clone().requires_grad_(True)
+        before = kf.f32_launches
+        with pytest.raises(RuntimeError, match="no backward"):
+            kf.flash_attention(*xs)
+        assert kf.f32_launches == before
+    with pytest.raises(RuntimeError, match="no backward"):
+        kd.decode_attention(qd.clone().requires_grad_(True), k, v, lengths)
+    with pytest.raises(RuntimeError, match="no backward"):
+        kd.decode_attention(qd, k.clone().requires_grad_(True), v, lengths)
+    qg = q.clone().requires_grad_(True)
+    with torch.no_grad():
+        out = kf.flash_attention(qg, k, v)
+        dec = kd.decode_attention(qd.clone().requires_grad_(True), k, v,
+                                  lengths)
+    assert (out - kf.flash_attention_plain(q, k, v, causal=True,
+                                           scale=32 ** -0.5)).abs().max() \
+        < 2e-5
+    assert dec.shape == qd.shape
+    cpu = qg.detach().cpu().requires_grad_(True)
+    kf.flash_attention(cpu, k.cpu(), v.cpu()).sum().backward()
+    assert cpu.grad is not None and torch.isfinite(cpu.grad).all()
+    params = ttf.init_params(TINY, 0, device=cuda)
+    toks = torch.tensor([[5, 9, 13, 2]], device=cuda)
+    leaf = params["layers"][0]["attn"]["wq"].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ttf.forward(params, TINY, {"tokens": toks})
+    loss, _ = ttf.loss_fn(params, TINY, {"tokens": toks, "labels": toks})
+    (grad,) = torch.autograd.grad(loss, [leaf])
+    assert float(grad.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_bfloat16_round_trip(cuda, tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.optim import adamw
+
+    params = {"w": torch.randn(64, 32, device=cuda).to(torch.bfloat16),
+              "n": torch.zeros(32, device=cuda)}
+    params["w"][0, 0] = float("nan")
+    state = adamw.init(params)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(3, {"params": params, "opt": state})
+    got, manifest = mgr.restore(3, {"params": params, "opt": state})
+    assert manifest["step"] == 3
+    w = got["params"]["w"]
+    assert w.is_cuda and w.dtype == torch.bfloat16
+    assert torch.equal(w.view(torch.int16), params["w"].view(torch.int16))
+    assert got["opt"].step.is_cuda and got["opt"].mu["w"].is_cuda
+
+
+@pytest.mark.cuda
+def test_cuda_path_corpus_equals_cpu(cuda):
+    """PathCorpus on the card (K1's hop entry) gives the CPU's batches
+    bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.data.pipeline import PathCorpus
+
+    g = power_law(200, 5.0, seed=4)
+    kw = dict(k=4, seq_len=16, global_batch=4)
+    on_card = PathCorpus(graph=g, device=cuda, **kw)
+    cpu = PathCorpus(graph=g, device="cpu", **kw)
+    before = kernels.launch_counts()["frontier_hop"]
+    for step in range(3):
+        a, b = on_card.batch_at(step), cpu.batch_at(step)
+        for key in ("tokens", "labels"):
+            assert a[key].tobytes() == b[key].tobytes()
+    assert kernels.launch_counts()["frontier_hop"] > before

@@ -14,7 +14,9 @@ and every ``BatchOutput`` counter must be equal; the compressed sums
 are integers times a shared scale and must be bit-identical.  The
 compressed gradient is held to the exact one within ``repro``'s own
 bounds (tests/test_distributed.py): loss within 1e-4, every gradient
-within 5% of its largest entry (the int8 grid's step is 1/127 of it).
+within 5% of its largest entry (the int8 grid's step is 1/127 of it),
+for a two-layer MLP and for ``repro``'s own case, the LM loss of
+``training.step.make_loss_fn`` on a one-layer dense config.
 """
 import os
 import pickle
@@ -198,6 +200,18 @@ def test_compressed_grad_fn_within_repro_bound(runs, mesh):
     for got in runs[mesh]:
         assert got["grad"]["loss_diff"] < 1e-4
         assert got["grad"]["max_rel"] < 0.05
+
+
+def test_compressed_lm_grad_fn_within_repro_bound(runs, mesh):
+    """``make_compressed_grad_fn`` over the port's ``make_loss_fn`` on
+    ``repro``'s own test config (tests/test_distributed.py: dense, one
+    layer, d 32, vocab 64), each rank holding its share of 8 sequences:
+    loss within 1e-4 of the whole batch's, every gradient within 5% of
+    its largest entry."""
+    for got in runs[mesh]:
+        assert got["lm_grad"]["leaves"] == 11
+        assert got["lm_grad"]["loss_diff"] < 1e-4
+        assert got["lm_grad"]["max_rel"] < 0.05
 
 
 def test_collectives_once_per_level(runs, mesh):

@@ -233,6 +233,39 @@ def mlp_loss(torch):
     return loss_fn
 
 
+def lm_grad_case(torch, dist, make_compressed_grad_fn):
+    """``repro``'s own case (tests/test_distributed.py): the compressed
+    gradient of ``make_loss_fn`` on a 1-layer dense LM (d 32, vocab 64)
+    over 8 sequences of 16 tokens split across the ranks, against the
+    exact gradient of the whole batch."""
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs.base import ArchConfig
+    from repro_torch.models import transformer
+    from repro_torch.training.step import make_loss_fn
+
+    cfg = ArchConfig(name="t", family="dense", num_layers=1, d_model=32,
+                     num_heads=2, kv_heads=1, d_ff=64, vocab=64,
+                     head_dim=16, attn_chunk=8, tie_embeddings=True)
+    params = transformer.init_params(cfg, 0, device="cpu")
+    loss_fn = make_loss_fn(cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, (8, 16), dtype=np.int32))
+    world, r = dist.get_world_size(), dist.get_rank()
+    rows = 8 // world
+    local = toks[rows * r:rows * (r + 1)]
+    loss, grads = make_compressed_grad_fn(loss_fn, dist.group.WORLD)(
+        params, {"tokens": local, "labels": local})
+    leaves = [p.detach().clone().requires_grad_(True)
+              for p in tree_mod.leaves(params)]
+    exact_loss, _ = loss_fn(tree_mod.unflatten(params, leaves),
+                            {"tokens": toks, "labels": toks})
+    exact = torch.autograd.grad(exact_loss, leaves)
+    rel = [float((g - e).abs().max() / (e.abs().max() + 1e-9))
+           for g, e in zip(tree_mod.leaves(grads), exact)]
+    return dict(loss_diff=abs(float(loss) - float(exact_loss)),
+                max_rel=max(rel), leaves=len(rel))
+
+
 def port_side(rows, cols, rank, init_method, path):
     import torch
     import torch.distributed as dist
@@ -313,6 +346,7 @@ def port_side(rows, cols, rank, init_method, path):
            for key, e in zip(leaves, exact)]
     res["grad"] = dict(loss_diff=abs(float(loss) - float(exact_loss)),
                        max_rel=max(rel))
+    res["lm_grad"] = lm_grad_case(torch, dist, make_compressed_grad_fn)
     with open(path % rank, "wb") as fh:
         pickle.dump(res, fh)
     dist.destroy_process_group()
