@@ -199,11 +199,36 @@ Phases, one JSON line each (``{"phase": ...}``):
    corpus's batches on the card equal to the CPU's, K1's hop entry
    launched.  Then ``train_check``: no K6 or K7 launch in the phase,
    and both raise on CUDA inputs that require grad.
+17. ``shard`` — the LM's mesh layout (``distributed.sharding``,
+   ``distributed.constraints``, DTensor).  The dry-run cells start first,
+   each in a process of its own on the host (``--dryrun-cell``).
+   ``shard_train``: the ``train`` leg's llama3.2-1b, 8 × 1024, 4 steps
+   through ``Trainer(mesh=make_local_mesh())``, a 1 × 1 NCCL mesh with
+   every parameter and state leaf a DTensor, against an unsharded
+   Trainer from the same seed (loss and parameters within 1e-6 relative:
+   on one rank every redistribute is a no-op), seconds a step beside the
+   ``train`` leg's, peak ``max_memory_allocated``, a traced step.
+   ``shard_serve``: the ``lm`` phase's internlm2-1.8b with DTensor
+   parameters, batch and cache: a prefill of 2 × 2048 and 16 decode
+   steps of 8 slots, K6 and K7 on local shards through ``local_map`` in
+   every attention call (``models.attention.mesh_routes``), logits
+   within 2e-5 of the unsharded kernel path.  (No gloo mesh of two
+   processes on the card: DTensor's functional all-gather crashes over
+   gloo on CUDA tensors, ``tools/gloo_cuda_collectives.py``; multi-rank
+   layouts are held by the CPU tests.)  ``dryrun``: the three production
+   cells of ``DRYRUN_CELLS`` on fake process groups of 256 and 512
+   ranks (status, FLOPs, argument and peak bytes, collective bytes a
+   device).  ``dryrun_check``: the dry run of ``shard_train``'s step on
+   a (1, 1) fake mesh against the card: argument bytes and
+   ``FlopCounterMode``'s FLOPs equal, the peak estimate within
+   ``DRYRUN_PEAK_RATIO`` of ``max_memory_allocated``.  Then
+   ``shard_check``: no K6 or K7 launch in ``shard_train``.
 
 The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 7, phase 8, the
-``mesh_1`` leg of phase 9, phase 11, phase 13, each leg of phase 15 and
-phase 16, each read just after its phase or leg.  K5 is held against its plain
+``mesh_1`` leg of phase 9, phase 11, phase 13, each leg of phase 15,
+phase 16 and the ``shard_train`` and ``shard_serve`` legs of phase 17,
+each read just after its phase or leg.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -3117,7 +3142,8 @@ def train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
               get_arch, dev, seed):
     """``train``: TRAIN_ARCH at full width and depth, float32 parameters
     and AdamW state, remat on, through ``Trainer.fit``; then the first
-    step again with ``microbatches=2`` against 1, and a traced step."""
+    step again with ``microbatches=2`` against 1, and a traced step.
+    Returns the median seconds a step."""
     cfg = get_arch(TRAIN_ARCH)
     leg = TRAIN_LEG
     data = pipe.SyntheticLM(vocab=cfg.vocab, seq_len=leg["seq_len"],
@@ -3149,6 +3175,7 @@ def train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
           "params": n_params, "dtype": "float32", "remat": cfg.remat,
           "tokens_per_step": tokens, **summary, "fit_s": fit_s,
           "peak_memory_allocated": peak, "params_moved": moved})
+    train_sec = summary["median_sec_per_step"]
     del params, opt_state, tr
     torch.cuda.empty_cache()
 
@@ -3177,6 +3204,7 @@ def train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
           f"train: microbatches=2 grad_norm off by {gn_rel}")
     del p0, st, batch, fn
     torch.cuda.empty_cache()
+    return train_sec
 
 
 def train_ssm_leg(torch, np, tr_mod, adamw, pipe, get_arch, dev, seed):
@@ -3331,7 +3359,8 @@ def train_corpus_leg(torch, kernels, pipe, train_main, tc, dev):
 def train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, seed):
     """Phase 16: LM training on the card (``train``, ``train_ssm``,
     ``train_restart``, ``train_corpus``), counts from 0 before it and
-    read after it, then ``train_check``."""
+    read after it, then ``train_check``.  Returns the ``train`` leg's
+    median seconds a step."""
     from repro_torch import tree as tree_mod
     from repro_torch.checkpoint import manager as ckpt_mod
     from repro_torch.data import pipeline as pipe
@@ -3343,8 +3372,8 @@ def train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, seed):
 
     t_phase = time.perf_counter()
     kernels.reset_launch_counts()
-    train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod, step_mod,
-              get_arch, dev, seed)
+    train_sec = train_leg(torch, np, tr_mod, adamw, pipe, tm, tree_mod,
+                          step_mod, get_arch, dev, seed)
     train_ssm_leg(torch, np, tr_mod, adamw, pipe, get_arch, dev, seed)
     lm100m = train_launch.build_arch(argparse.Namespace(preset="lm100m",
                                                         arch=None))
@@ -3375,6 +3404,378 @@ def train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, seed):
         check(launches[name] == 0, f"{name} launched in the train phase")
     for name, ok in refused.items():
         check(ok, f"{name} did not refuse CUDA inputs that require grad")
+    return train_sec
+
+
+# phase 17: the LM's mesh layout (DTensor) on the card
+SHARD_TRAIN_STEPS = 4
+SHARD_TRAIN_RTOL = 1e-6          # one rank: every redistribute is a no-op
+SHARD_SERVE = dict(prompt_len=2048, batch=2, slots=8, decode_steps=16,
+                   max_len=64)
+SHARD_SERVE_TOL = 2e-5           # lm_check's kernels against themselves
+DRYRUN_CELLS = (("llama3p2_1b", "train_4k", "single"),
+                ("qwen3_moe_30b_a3b", "decode_32k", "single"),
+                ("mamba2_780m", "long_500k", "multi"))
+DRYRUN_TIMEOUT = 400.0
+# dryrun_check: the dry run's peak estimate over the card's measured peak
+# of the same step must lie in this range (its live-storage count is the
+# same program's; the allocator rounds blocks and caches nothing here)
+DRYRUN_PEAK_RATIO = (0.5, 2.0)
+
+
+def dryrun_worker(args) -> None:
+    """One dry-run cell (``--dryrun-cell``, a JSON list of ``run_cell``'s
+    arch, shape and mesh, and for the check cell the mesh shape, sequence
+    length and batch of ``shard_train``): its record to
+    ``--dryrun-out``.  Runs on meta tensors over a fake process group; it
+    touches no card."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    spec = json.loads(args.dryrun_cell)
+    t0 = time.perf_counter()
+    if len(spec) == 3:
+        rec = dryrun.run_cell(*spec)
+    else:
+        arch, shape, mesh, mesh_shape, seq, batch = spec
+        rec = dryrun.run_cell(arch, shape, mesh, mesh_shape=mesh_shape,
+                              cfg=get_arch(arch),
+                              shape=ShapeConfig("shard_train", seq, batch,
+                                                "train"),
+                              dtype=torch.float32)
+    dryrun.release_fake_group()
+    rec["wall_s"] = time.perf_counter() - t0
+    with open(args.dryrun_out, "w") as fh:
+        json.dump(rec, fh, default=float)
+
+
+def start_dryruns(tmp):
+    """The ``dryrun`` cells and ``dryrun_check``'s, each in a process of
+    its own, started together; they run on the host while the card
+    trains."""
+    cells = {f"{a}__{s}__{m}": [a, s, m] for a, s, m in DRYRUN_CELLS}
+    cells["check"] = [TRAIN_ARCH, "train_4k", "single", [1, 1],
+                      TRAIN_LEG["seq_len"], TRAIN_LEG["global_batch"]]
+    procs = {}
+    for name, spec in cells.items():
+        out = str(Path(tmp) / f"{name}.json")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-cell",
+             json.dumps(spec), "--dryrun-out", out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+    return procs
+
+
+def stop(procs) -> None:
+    for p, _out in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def collect_dryruns(procs, started):
+    """Each cell's record; a cell that fails, or is not done
+    DRYRUN_TIMEOUT seconds after ``started``, fails the script."""
+    recs = {}
+    for name, (p, out) in procs.items():
+        try:
+            _so, se = p.communicate(timeout=max(
+                DRYRUN_TIMEOUT - (time.perf_counter() - started), 1.0))
+        except subprocess.TimeoutExpired:
+            stop(procs)
+            fail(f"dryrun {name}: not done {DRYRUN_TIMEOUT} s after the "
+                 f"phase began")
+        check(p.returncode == 0,
+              f"dryrun {name} exited {p.returncode}: {se[-3000:]}")
+        with open(out) as fh:
+            recs[name] = json.load(fh)
+        check(recs[name]["status"] == "ok", f"dryrun {name}: {recs[name]}")
+    return recs
+
+
+def tree_nbytes(tree_mod, tree) -> int:
+    """The bytes a rank holds of a tree's tensors (a DTensor's local
+    shard)."""
+    from torch.distributed.tensor import DTensor
+    return sum((x.to_local() if isinstance(x, DTensor) else x).nbytes
+               for x in tree_mod.leaves(tree))
+
+
+def shard_train_leg(torch, np, mesh, dev, seed, train_sec):
+    """``shard_train``: TRAIN_ARCH at full width and depth through
+    ``Trainer(mesh=)`` on the 1 x 1 NCCL mesh, against an unsharded
+    Trainer from the same seed; a traced step; then the numbers
+    ``dryrun_check`` holds the dry run to."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import tree as tree_mod
+    from repro_torch.configs import get_arch
+    from repro_torch.data import pipeline as pipe
+    from repro_torch.distributed import constraints as con
+    from repro_torch.optim import adamw
+    from repro_torch.training import trainer as tr_mod
+
+    cfg = get_arch(TRAIN_ARCH)
+    leg = TRAIN_LEG
+    data = pipe.SyntheticLM(vocab=cfg.vocab, seq_len=leg["seq_len"],
+                            global_batch=leg["global_batch"], seed=seed)
+    opt_cfg = adamw.OptimizerConfig(peak_lr=3e-4, warmup_steps=2,
+                                    total_steps=SHARD_TRAIN_STEPS)
+
+    def trainer(mesh=None):
+        return tr_mod.Trainer(cfg, opt_cfg, tr_mod.TrainerConfig(
+            steps=SHARD_TRAIN_STEPS, log_every=1, seed=seed, device=dev),
+            mesh=mesh)
+
+    plain = trainer()
+    p0, o0 = plain.fit(data)
+    del o0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sharded = trainer(mesh)
+    t0 = time.perf_counter()
+    p1, o1 = sharded.fit(data)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated(dev)
+    all_dtensor = all(isinstance(x, DTensor)
+                      for x in tree_mod.leaves((p1, o1)))
+    loss_rel = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(sharded.metrics_log, plain.metrics_log))
+    param_rel = max(float((a.full_tensor() - b).abs().max())
+                    / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(tree_mod.leaves(p1), tree_mod.leaves(p0)))
+    del p0
+    torch.cuda.empty_cache()
+
+    batch = sharded._batch(data.batch_at(0))
+
+    def step():
+        with con.use_mesh(mesh):
+            return sharded.step_fn(p1, o1, batch)
+    trace = device_busy(torch, step, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    with FlopCounterMode(display=False) as fc:
+        out = step()
+    torch.cuda.synchronize()
+    step_peak = torch.cuda.max_memory_allocated(dev)
+    del out
+    arg_bytes = tree_nbytes(tree_mod, (p1, o1, batch))
+    summary = train_log_summary(
+        np, sharded, leg["seq_len"] * leg["global_batch"])
+    plain_summary = train_log_summary(
+        np, plain, leg["seq_len"] * leg["global_batch"])
+    emit({"phase": "shard", "leg": "shard_train", "arch": cfg.name,
+          "mesh": [1, 1], "backend": "nccl", "steps": SHARD_TRAIN_STEPS,
+          "tokens_per_step": leg["seq_len"] * leg["global_batch"],
+          "all_leaves_dtensor": all_dtensor,
+          "loss": summary["loss"], "plain_loss": plain_summary["loss"],
+          "median_sec_per_step": summary["median_sec_per_step"],
+          "plain_median_sec_per_step": plain_summary["median_sec_per_step"],
+          "train_leg_median_sec_per_step": train_sec,
+          "tokens_per_s": summary["tokens_per_s"], "fit_s": fit_s,
+          "peak_memory_allocated": fit_peak,
+          "max_loss_rel_diff": loss_rel, "max_param_rel_diff": param_rel,
+          "trace": trace})
+    check(all_dtensor, "shard_train: a parameter or state leaf is no "
+                       "DTensor")
+    check(loss_rel <= SHARD_TRAIN_RTOL,
+          f"shard_train: loss off the unsharded Trainer's by {loss_rel}")
+    check(param_rel <= SHARD_TRAIN_RTOL,
+          f"shard_train: parameters off the unsharded Trainer's by "
+          f"{param_rel}")
+    del p1, o1, batch
+    torch.cuda.empty_cache()
+    return {"argument_bytes": arg_bytes,
+            "flops": float(fc.get_total_flops()),
+            "step_peak_bytes": step_peak,
+            "step_peak_above_args": step_peak - base}
+
+
+def shard_serve_leg(torch, np, kernels, mesh, dev, seed):
+    """``shard_serve``: LM_ARCH (the ``lm`` phase's config and weights)
+    with DTensor parameters, batch and cache on the 1 x 1 mesh: a prefill
+    and SHARD_SERVE's decode steps, K6 and K7 on local shards through
+    ``local_map``, against the unsharded kernel path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import constraints as con
+    from repro_torch.distributed import sharding as S
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import transformer as tm
+    from repro_torch.training import step as step_mod
+
+    cfg = get_arch(LM_ARCH)
+    sv = SHARD_SERVE
+    params = tm.init_params(cfg, seed, device=dev)
+    rng = np.random.default_rng(seed + 23)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (sv["batch"], sv["prompt_len"])).astype(np.int32)).to(
+            dev)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (sv["decode_steps"], sv["slots"])).astype(
+            np.int32)).to(dev)
+    prefill = step_mod.make_prefill(cfg)
+    serve = step_mod.make_serve_step(cfg)
+
+    def run(params, place):
+        batch = place({"tokens": prompt}, "batch")
+        cache = place(tm.init_cache(cfg, sv["slots"], sv["max_len"],
+                                    device=dev), "cache")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _kv, _ = prefill(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        out = [logits]
+        t0 = time.perf_counter()
+        for i in range(sv["decode_steps"]):
+            tok = place(toks[i], "batch")
+            lens = place(torch.full((sv["slots"],), i, dtype=torch.int32,
+                                    device=dev), "batch")
+            _nxt, cache, lg = serve(params, tok, cache, lens)
+            out.append(lg)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        full = [x.full_tensor() if hasattr(x, "full_tensor") else x
+                for x in out]
+        return full, prefill_s, decode_s
+
+    rules = {"batch": lambda t: S.batch_shardings(mesh, t),
+             "cache": lambda t: S.cache_shardings(mesh, cfg, t)}
+
+    def place(tree, kind):
+        return S.distribute_tree(tree, mesh, rules[kind](tree))
+    dparams = S.distribute_tree(params, mesh,
+                                S.param_shardings(mesh, cfg, params))
+    kernels.reset_launch_counts()
+    routes0 = dict(attn_mod.mesh_routes)
+    with con.use_mesh(mesh):
+        got, prefill_s, decode_s = run(dparams, place)
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    routes = {k: v - routes0[k] for k, v in attn_mod.mesh_routes.items()}
+    want, plain_prefill_s, plain_decode_s = run(params, lambda t, _k: t)
+    err_prefill = max_abs_err(torch, got[0], want[0])
+    err_decode = max(max_abs_err(torch, a, b)
+                     for a, b in zip(got[1:], want[1:]))
+    tokens = sv["batch"] * sv["prompt_len"]
+    emit({"phase": "shard", "leg": "shard_serve", "arch": cfg.name,
+          "mesh": [1, 1], "dtype": "float32", "prompt": [sv["batch"],
+                                                         sv["prompt_len"]],
+          "slots": sv["slots"], "decode_steps": sv["decode_steps"],
+          "prefill_s": prefill_s, "plain_prefill_s": plain_prefill_s,
+          "prefill_tokens_per_s": tokens / prefill_s,
+          "decode_ms_per_step": decode_s / sv["decode_steps"] * 1e3,
+          "plain_decode_ms_per_step":
+              plain_decode_s / sv["decode_steps"] * 1e3,
+          "launches": {n: launches[n] for n in LM_KERNELS},
+          "routes": routes, "prefill_max_abs_err": err_prefill,
+          "decode_max_abs_err": err_decode, "tolerance": SHARD_SERVE_TOL})
+    for name in LM_KERNELS:
+        check(launches[name] > 0, f"shard_serve: {name} never launched")
+    check(routes["plain"] == 0 and routes["local_kernel"]
+          == cfg.num_layers * (1 + sv["decode_steps"]),
+          f"shard_serve: attention routes {routes}")
+    check(err_prefill <= SHARD_SERVE_TOL and err_decode <= SHARD_SERVE_TOL,
+          f"shard_serve: logits off the unsharded kernel path by "
+          f"{err_prefill}, {err_decode}")
+    del params, dparams
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dryrun_lines(recs):
+    """The ``dryrun`` lines: each production cell's record."""
+    for name, rec in recs.items():
+        if name == "check":
+            continue
+        emit({"phase": "shard", "leg": "dryrun", "cell": name,
+              "status": rec["status"], "chips": rec["chips"],
+              "flops_per_device": rec["cost"]["flops_per_device"],
+              "argument_bytes": rec["memory"]["argument_bytes"],
+              "peak_estimate_bytes": rec["memory"]["peak_estimate_bytes"],
+              "collectives_per_device_bytes":
+                  rec["collectives_per_device_bytes"],
+              "cost_source": rec["cost_source"],
+              "param_spec_sample": rec["param_spec_sample"],
+              "wall_s": rec["wall_s"]})
+
+
+def dryrun_check(rec, measured):
+    """``dryrun_check``: the dry run of ``shard_train``'s config and shape
+    on a (1, 1) fake mesh against the step measured on the card."""
+    mem = rec["memory"]
+    ratio = mem["peak_estimate_bytes"] / measured["step_peak_bytes"]
+    emit({"phase": "shard", "leg": "dryrun_check", "mesh": [1, 1],
+          "argument_bytes": mem["argument_bytes"],
+          "card_argument_bytes": measured["argument_bytes"],
+          "flops": rec["cost"]["flops_per_device"],
+          "flop_counter_flops": measured["flops"],
+          "peak_estimate_bytes": mem["peak_estimate_bytes"],
+          "max_memory_allocated": measured["step_peak_bytes"],
+          "peak_ratio": ratio, "peak_ratio_bound": DRYRUN_PEAK_RATIO,
+          "temp_bytes": mem["temp_bytes"],
+          "measured_above_args": measured["step_peak_above_args"]})
+    check(mem["argument_bytes"] == measured["argument_bytes"],
+          f"dryrun_check: argument bytes {mem['argument_bytes']} against "
+          f"{measured['argument_bytes']} on the card")
+    check(rec["cost"]["flops_per_device"] == measured["flops"],
+          f"dryrun_check: {rec['cost']['flops_per_device']} FLOPs against "
+          f"FlopCounterMode's {measured['flops']}")
+    check(DRYRUN_PEAK_RATIO[0] <= ratio <= DRYRUN_PEAK_RATIO[1],
+          f"dryrun_check: peak estimate {ratio:.3f} times the measured")
+
+
+def shard_phase(torch, np, kernels, dev, seed, train_sec):
+    """Phase 17: the LM's mesh layout.  The dry-run cells start in
+    processes of their own; then ``shard_train`` and ``shard_serve`` on
+    a 1 x 1 NCCL mesh (launch counts from 0 before each leg, read after),
+    the ``dryrun`` lines and ``dryrun_check``.  A 1 x 2 gloo mesh of two
+    processes on the card is left out: DTensor's functional collectives
+    crash over gloo on CUDA tensors (PERF.md §7,
+    ``tools/gloo_cuda_collectives.py``)."""
+    import tempfile
+
+    import torch.distributed as tdist
+
+    from repro_torch.launch.mesh import make_local_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_dryruns(tmp)
+        try:
+            mesh = make_local_mesh(device=dev)
+            try:
+                kernels.reset_launch_counts()
+                measured = shard_train_leg(torch, np, mesh, dev, seed,
+                                           train_sec)
+                train_launches = kernels.launch_counts()
+                serve_launches = shard_serve_leg(torch, np, kernels, mesh,
+                                                 dev, seed)
+            finally:
+                tdist.destroy_process_group()
+        except BaseException:
+            stop(procs)
+            raise
+        recs = collect_dryruns(procs, t_phase)
+        dryrun_lines(recs)
+        dryrun_check(recs["check"], measured)
+    emit({"phase": "shard_check", "ok": True,
+          "train_launches": {n: train_launches[n] for n in LM_KERNELS},
+          "serve_launches": {n: serve_launches[n] for n in LM_KERNELS},
+          "seconds": time.perf_counter() - t_phase})
+    for name in LM_KERNELS:
+        check(train_launches[name] == 0,
+              f"{name} launched in shard_train")
+    return serve_launches
 
 
 def main() -> None:
@@ -3393,6 +3794,9 @@ def main() -> None:
     ap.add_argument("--mesh-data", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-device", help=argparse.SUPPRESS)
+    # one cell of the shard phase's dry run
+    ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     import torch
@@ -3407,6 +3811,9 @@ def main() -> None:
                  f"here")
     if args.mesh_rank is not None:
         mesh_worker(args)
+        return
+    if args.dryrun_cell is not None:
+        dryrun_worker(args)
         return
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -3626,7 +4033,11 @@ def main() -> None:
                    get_arch, dev, args.seed)
 
     # LM training: counts from 0, read right after
-    train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev, args.seed)
+    train_sec = train_phase(torch, np, kernels, kf, kd, tc, get_arch, dev,
+                            args.seed)
+
+    # the LM's mesh layout: each leg's counts from 0, read right after
+    shard_phase(torch, np, kernels, dev, args.seed, train_sec)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {

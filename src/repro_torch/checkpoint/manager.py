@@ -19,6 +19,13 @@ joined by ``/``).  numpy has no bfloat16, so a bfloat16 tensor is saved
 as its ``int16`` view and restored by viewing it back to the template's
 dtype, bit for bit.  ``restore`` puts every tensor leaf on its
 template's device.
+
+Checkpoints are unsharded.  ``save`` gathers every DTensor leaf to its
+full value (``full_tensor()``; every rank of the mesh must call it);
+then rank 0 of the default process group writes and the others wait at
+a barrier.  ``restore`` returns full tensors, which the trainer
+distributes on its own mesh, so a checkpoint saved on one mesh restores
+on any other.
 """
 from __future__ import annotations
 
@@ -32,11 +39,16 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from .. import tree as tree_mod
+from ..distributed.sharding import full_tree
 
 
 def _to_numpy(leaf: Any) -> np.ndarray:
+    if isinstance(leaf, DTensor):
+        raise TypeError("a DTensor leaf: gather it with full_tensor() first")
     if isinstance(leaf, torch.Tensor):
         leaf = leaf.detach().cpu()
         if leaf.dtype == torch.bfloat16:
@@ -78,7 +90,22 @@ class CheckpointManager:
     def save(self, step: int, trees: Dict[str, Any],
              extra: Optional[Dict[str, Any]] = None) -> str:
         """Write ``trees`` (name -> tree) as checkpoint ``step`` and
-        return its directory."""
+        return its directory.  With DTensor leaves every rank calls it:
+        they gather, rank 0 writes, all meet at a barrier after."""
+        sharded = any(isinstance(x, DTensor)
+                      for x in tree_mod.leaves(trees))
+        if sharded:
+            trees = {name: full_tree(tree) for name, tree in trees.items()}
+        final = os.path.join(self.directory, f"step-{step:010d}")
+        if sharded and dist.is_initialized() and dist.get_world_size() > 1:
+            if dist.get_rank() == 0:
+                self._write(step, trees, extra)
+            dist.barrier()
+            return final
+        return self._write(step, trees, extra)
+
+    def _write(self, step: int, trees: Dict[str, Any],
+               extra: Optional[Dict[str, Any]]) -> str:
         tmp = os.path.join(self.directory, f"tmp-{step}")
         final = os.path.join(self.directory, f"step-{step:010d}")
         if os.path.exists(tmp):

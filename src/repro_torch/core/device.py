@@ -4,6 +4,8 @@ Every entry point takes ``device=`` and defaults to ``"cuda"``: the port
 exists to run on the card.  A ``"cuda"`` request on a machine without a
 CUDA device raises here; nothing falls back to the CPU.  ``"cpu"`` is an
 explicit request, and then each kernel wrapper runs its plain version.
+``"meta"`` (shapes and dtypes, no storage) is what the dry run's
+stand-ins are built on (``launch/specs.py``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ def resolve_device(device: torch.device | str) -> torch.device:
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
         return dev
-    if dev.type != "cpu":
-        raise ValueError(f"unsupported device {device!r}: cuda or cpu")
+    if dev.type not in ("cpu", "meta"):
+        raise ValueError(f"unsupported device {device!r}: cuda, cpu or "
+                         f"meta")
     return dev

@@ -24,7 +24,7 @@ import math
 import torch
 
 from . import _build
-from .flash_attention import check_inputs, refuse_autograd
+from .flash_attention import check_inputs, refuse_autograd, refuse_dtensor
 
 # kernel launches since process start (chip_smoke.py resets and reads
 # them); one a wrapper call, the combine pass included
@@ -131,8 +131,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """q (B, H, D); k_cache, v_cache (B, S, Hkv, D); lengths (B,) integer
     on q's device.  Returns (B, H, D); ``scale`` defaults to
     ``1 / sqrt(D)``.  On the card, inputs that autograd tracks raise
-    (``refuse_autograd``)."""
+    (``refuse_autograd``).  A DTensor raises on either device
+    (``refuse_dtensor``)."""
     global launches
+    refuse_dtensor("decode_attention", {"q": q, "k_cache": k_cache,
+                                        "v_cache": v_cache,
+                                        "lengths": lengths})
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: q must be (B, H, D) and the "
                          f"caches (B, S, Hkv, D), got {tuple(q.shape)}, "

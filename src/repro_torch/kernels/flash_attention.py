@@ -25,6 +25,7 @@ import ctypes
 import math
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from . import _build
 
@@ -77,6 +78,17 @@ def _launcher(bf16: bool):
     return fn
 
 
+def refuse_dtensor(name: str, tensors: dict) -> None:
+    """Raise on a DTensor: a kernel runs on one rank's local shard, which
+    ``models/attention.py`` hands it through ``local_map``.  Shared with
+    K7's wrapper."""
+    for arg, x in tensors.items():
+        if isinstance(x, DTensor):
+            raise TypeError(f"{name}: {arg} is a DTensor; pass its local "
+                            f"shard (models/attention.py runs the kernel "
+                            f"under local_map)")
+
+
 def check_inputs(name: str, tensors: dict, head_dim: int) -> None:
     """Raise unless the tensors share one device and one dtype (float32
     or bfloat16), are contiguous (and 16-byte aligned on the card, for
@@ -124,8 +136,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``1 / sqrt(D)``.  On the card the dtype picks the kernel: bfloat16
     launches the ``wgmma`` kernel, float32 the split-TF32 kernel, and
     inputs that autograd tracks raise (``refuse_autograd``); a CPU tensor
-    takes ``flash_attention_plain``."""
+    takes ``flash_attention_plain``.  A DTensor raises on either device
+    (``refuse_dtensor``)."""
     global f32_launches, wgmma_launches
+    refuse_dtensor("flash_attention", {"q": q, "k": k, "v": v})
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q must be (B, Lq, H, D) and k, v "
                          f"(B, Lk, Hkv, D), got {tuple(q.shape)}, "

@@ -10,6 +10,14 @@ exactly, with no capacity.  Both return the Switch-style load-balance
 aux ``moe_balance``.  Expert weights are stacked (E, ...) as in
 ``repro``.  No Pallas kernel here in ``repro``, so no CUDA kernel in
 the port: plain torch ops on either device.
+
+On a mesh the slots carry ``repro``'s constraints (``moe_slots``:
+experts over ``model``; the combined tokens over the dp group).  Two
+regions have no DTensor sharding strategy and run under ``local_map``:
+the slot tables (a stable argsort, a searchsorted and three scatters)
+are built on every rank from the replicated routing, and the combine's
+``index_add_`` sums each rank's own experts into a partial (T, D) that
+the tokens' constraint reduces.
 """
 from __future__ import annotations
 
@@ -17,9 +25,13 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
-from .layers import init_dense
+from ..distributed import constraints as con
+from ..distributed.sharding import ShardingRules, placements
+from .layers import init_dense, take_rows
 
 
 def init_moe(cfg: ArchConfig, generator: torch.Generator,
@@ -59,20 +71,49 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
     aux = {"moe_balance": _balance(probs, expert_ids, E)}
 
     if decode:
-        wg = params["w_gate"][expert_ids]                     # (T, K, D, F)
-        wu = params["w_up"][expert_ids]
-        wd = params["w_down"][expert_ids]
-        g = torch.einsum("td,tkdf->tkf", xt, wg)
-        u = torch.einsum("td,tkdf->tkf", xt, wu)
-        y = torch.einsum("tkf,tkfd->tkd", F.silu(g) * u, wd)
-        out = (y * gate_vals[..., None]).sum(dim=1)
+        if isinstance(xt, DTensor):
+            out = _decode_on_mesh(params, xt, expert_ids, gate_vals)
+        else:
+            out = _decode_experts(params, xt, expert_ids, gate_vals)
         return out.reshape(B, L, D).to(x.dtype), aux
 
     # Python's round (half to even), as repro: a capacity of 2.5 is 2
     cap = int(max(1, round(T * K / E * cfg.capacity_factor)))
-    dev = x.device
-    # each (token, k) pair's position in its expert's queue, by a stable
-    # sort of the expert ids and the rank within each run
+    if isinstance(xt, DTensor):
+        rep = [Replicate()] * xt.device_mesh.ndim
+        slot_tok, slot_gate, slot_valid = local_map(
+            lambda e, g: _slot_tables(e, g, T, K, E, cap),
+            out_placements=(rep, rep, rep), in_placements=(rep, rep),
+            device_mesh=xt.device_mesh, redistribute_inputs=True)(
+                expert_ids, gate_vals)
+    else:
+        slot_tok, slot_gate, slot_valid = _slot_tables(expert_ids, gate_vals,
+                                                       T, K, E, cap)
+
+    xe = con.constrain(take_rows(xt, slot_tok), con.moe_slots)  # (E, cap, D)
+    g = con.constrain(torch.bmm(xe, params["w_gate"]), con.moe_slots)
+    u = con.constrain(torch.bmm(xe, params["w_up"]), con.moe_slots)
+    ye = torch.bmm(F.silu(g) * u, params["w_down"])
+    ye = con.constrain(ye * slot_gate[..., None] * slot_valid[..., None],
+                       con.moe_slots)                            # float32
+    if isinstance(ye, DTensor):
+        out = _combine_on_mesh(slot_tok, ye, T)
+    else:
+        # empty slots point at token 0 and add zero
+        out = torch.zeros((T, D), dtype=ye.dtype,
+                          device=ye.device).index_add_(
+            0, slot_tok.reshape(-1), ye.reshape(-1, D))
+    out = con.constrain(out, con.tokens_d)
+    return out.reshape(B, L, D).to(x.dtype), aux
+
+
+def _slot_tables(expert_ids: torch.Tensor, gate_vals: torch.Tensor, T: int,
+                 K: int, E: int, cap: int):
+    """(slot_tok, slot_gate, slot_valid), each (E, cap), from the (T, K)
+    routing: the (token, k) pairs each expert gathers, ranked by position
+    within the expert's queue through a stable sort of the expert ids and
+    the rank within each run."""
+    dev = expert_ids.device
     e_flat = expert_ids.reshape(-1)                               # (T*K,)
     order = torch.argsort(e_flat, stable=True)
     sorted_e = e_flat[order]
@@ -89,15 +130,71 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ArchConfig,
     slot_tok[e_flat, p_idx] = tok_ids
     slot_gate[e_flat, p_idx] = gate_vals.reshape(-1)
     slot_valid[e_flat, p_idx] = True
-    slot_tok, slot_gate = slot_tok[:, :cap], slot_gate[:, :cap]
-    slot_valid = slot_valid[:, :cap]
+    return slot_tok[:, :cap], slot_gate[:, :cap], slot_valid[:, :cap]
 
-    xe = xt[slot_tok]                                         # (E, cap, D)
-    g = torch.bmm(xe, params["w_gate"])
-    u = torch.bmm(xe, params["w_up"])
-    ye = torch.bmm(F.silu(g) * u, params["w_down"])
-    ye = ye * slot_gate[..., None] * slot_valid[..., None]       # float32
-    # empty slots point at token 0 and add zero
-    out = torch.zeros((T, D), dtype=ye.dtype, device=dev).index_add_(
-        0, slot_tok.reshape(-1), ye.reshape(-1, D))
-    return out.reshape(B, L, D).to(x.dtype), aux
+
+def _combine_on_mesh(slot_tok: torch.Tensor, ye: DTensor, T: int) -> DTensor:
+    """The combine's ``index_add_`` on each rank's experts, the slots laid
+    out by ``moe_slots``: a (T, D) partial sum over every mesh dim that
+    splits the experts."""
+    mesh = ye.device_mesh
+    pl = list(placements(con.moe_slots(ShardingRules(mesh), tuple(ye.shape)),
+                         mesh))
+    out_pl = [Partial() if isinstance(p, Shard) else Replicate() for p in pl]
+
+    def local(st, ye):
+        D = ye.shape[-1]
+        return torch.zeros((T, D), dtype=ye.dtype, device=ye.device
+                           ).index_add_(0, st.reshape(-1), ye.reshape(-1, D))
+    return local_map(local, out_placements=out_pl, in_placements=(pl, pl),
+                     device_mesh=mesh, redistribute_inputs=True)(slot_tok, ye)
+
+
+def _decode_experts(params: dict, xt: torch.Tensor, expert_ids: torch.Tensor,
+                    gate_vals: torch.Tensor) -> torch.Tensor:
+    """Each token through its K experts' weights, gathered exactly: (T,
+    D) float32."""
+    wg = params["w_gate"][expert_ids]                     # (T, K, D, F)
+    wu = params["w_up"][expert_ids]
+    wd = params["w_down"][expert_ids]
+    g = torch.einsum("td,tkdf->tkf", xt, wg)
+    u = torch.einsum("td,tkdf->tkf", xt, wu)
+    y = torch.einsum("tkf,tkfd->tkd", F.silu(g) * u, wd)
+    return (y * gate_vals[..., None]).sum(dim=1)
+
+
+def _decode_on_mesh(params: dict, xt: DTensor, expert_ids, gate_vals):
+    """``_decode_experts`` on each rank's experts (``local_map``): the
+    tokens and their routes whole on every rank, the expert stacks split
+    over the mesh dims that ``param_spec`` splits them over (each rank's
+    weights whole along D and F), a partial sum over those dims."""
+    mesh = xt.device_mesh
+    rules = ShardingRules(mesh)
+    wpl = {name: [p if isinstance(p, Shard) and p.dim == 0 else Replicate()
+                  for p in placements(rules.param_spec(
+                      f"moe/{name}", tuple(params[name].shape)), mesh)]
+           for name in ("w_gate", "w_up", "w_down")}
+    split = wpl["w_gate"]
+    rep = [Replicate()] * mesh.ndim
+    # the first local expert: this rank's block along the splitting dims
+    coord, block, blocks = mesh.get_coordinate(), 0, 1
+    for i, p in enumerate(split):
+        if isinstance(p, Shard):
+            block, blocks = block * mesh.size(i) + coord[i], \
+                blocks * mesh.size(i)
+    offset = block * (params["w_gate"].shape[0] // blocks)
+
+    def local(xt, ids, gates, wg, wu, wd):
+        # routes to another rank's experts add nothing here
+        ids = ids - offset
+        keep = (ids >= 0) & (ids < wg.shape[0])
+        return _decode_experts({"w_gate": wg, "w_up": wu, "w_down": wd},
+                               xt, torch.where(keep, ids, 0), gates * keep)
+    out_pl = [Partial() if isinstance(p, Shard) else Replicate()
+              for p in split]
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(rep, rep, rep, wpl["w_gate"],
+                                    wpl["w_up"], wpl["w_down"]),
+                     device_mesh=mesh, redistribute_inputs=True)(
+                         xt, expert_ids, gate_vals, params["w_gate"],
+                         params["w_up"], params["w_down"])

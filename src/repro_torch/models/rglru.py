@@ -8,8 +8,9 @@ in, a depthwise causal conv, a GELU-gated output.  ``repro``'s
 with the same combine (ceil(log2 L) steps, each one batched op over the
 whole sequence).  ``jax.nn.gelu`` is the tanh form by default, and so is
 the GELU here.  ``lam`` stays float32 whatever the parameters' dtype, as
-in ``repro``.  No Pallas kernel here in ``repro``, so no CUDA kernel in
-the port.
+in ``repro``.  On a mesh the forward carries ``repro``'s constraints
+(``act_bsf`` on the two in-projections, ``act_bsd`` on the output).  No
+Pallas kernel here in ``repro``, so no CUDA kernel in the port.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..distributed import constraints as con
 from .layers import causal_conv1d, causal_conv1d_step, init_dense
 
 _C = 8.0  # Griffin's fixed scaling constant
@@ -67,11 +69,14 @@ def linear_scan(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def rglru_forward(params: dict, x: torch.Tensor,
                   cfg: ArchConfig) -> torch.Tensor:
     """x (B, L, D) -> (B, L, D)."""
-    xb = causal_conv1d(x @ params["w_x"], params["conv_w"])
+    xb = con.constrain(x @ params["w_x"], con.act_bsf)
+    xb = causal_conv1d(xb, params["conv_w"])
     i_t, a, mult = _gates(params, xb)
     h = linear_scan(a, mult * (i_t * xb).to(f32))                # (B, L, W)
-    gate = F.gelu(x @ params["w_gate_out"], approximate="tanh")
-    return (h.to(x.dtype) * gate) @ params["w_out"]
+    gate = F.gelu(con.constrain(x @ params["w_gate_out"], con.act_bsf),
+                  approximate="tanh")
+    return con.constrain((h.to(x.dtype) * gate) @ params["w_out"],
+                         con.act_bsd)
 
 
 def rglru_decode_step(params: dict, x_t: torch.Tensor, state,

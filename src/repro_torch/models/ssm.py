@@ -10,17 +10,29 @@ recurrent form, h <- dA·h + dt·B·x, y = C·h + D·x.
 ``torch.einsum`` takes one dtype where ``jnp.einsum`` promotes, so the
 casts follow jax's promotion: dt, the decays and h are float32, and a
 product with one of them is float32.  ``A_log``, ``D`` and ``dt_bias``
-stay float32 whatever the parameters' dtype, as in ``repro``.  No
-Pallas kernel here in ``repro``, so no CUDA kernel in the port.
+stay float32 whatever the parameters' dtype, as in ``repro``.  On a
+mesh the forward carries ``repro``'s constraints (``act_bsf`` on the
+in-projection, ``act_bsd`` on the output), and the chunked core runs on
+each rank's local shards through ``local_map`` laid out as ``repro``'s
+``ssd_intra`` (heads over model): its heads are independent, and its
+five-dimensional intermediates would cost DTensor's sharding search more
+than the work.  No Pallas kernel here in ``repro``, so no CUDA kernel in
+the port.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
-from .layers import causal_conv1d, causal_conv1d_step, init_dense, rms_norm
+from ..distributed import constraints as con
+from ..distributed.sharding import (ShardingRules, grad_placements,
+                                    placements)
+from .layers import (causal_conv1d, causal_conv1d_step, init_dense, pad_seq,
+                     rms_norm)
 
 f32 = torch.float32
 
@@ -59,7 +71,7 @@ def ssd_forward(params: dict, x: torch.Tensor,
     L, Q = x.shape[1], cfg.ssm_chunk
     Lp = -(-L // Q) * Q
     if Lp != L:
-        x = F.pad(x, (0, 0, 0, Lp - L))
+        x = pad_seq(x, Lp - L)
     return _ssd_forward_aligned(params, x, cfg)[:, :L]
 
 
@@ -80,9 +92,9 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
     di, ns, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
         cfg.ssm_head_dim
     Q = cfg.ssm_chunk
-    nc = L // Q
 
-    z, xbc, dt = _split_proj(cfg, x @ params["in_proj"])
+    proj = con.constrain(x @ params["in_proj"], con.act_bsf)
+    z, xbc, dt = _split_proj(cfg, proj)
     xbc = F.silu(causal_conv1d(xbc, params["conv_w"]))
     xs = xbc[..., :di].reshape(Bsz, L, nh, hd)
     Bv = xbc[..., di:di + ns]                                   # (B, L, N)
@@ -90,6 +102,25 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
 
     dt = F.softplus(dt.to(f32) + params["dt_bias"])             # (B, L, H)
     dA = dt * -torch.exp(params["A_log"])                       # log-decay
+
+    if isinstance(xs, DTensor):
+        y = _chunks_on_mesh(xs, Bv, Cv, dt, dA, params["D"], Q)
+    else:
+        y = _ssd_chunks(xs, Bv, Cv, dt, dA, params["D"], Q)
+    y = y.reshape(Bsz, L, di).to(x.dtype)
+    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
+    return con.constrain(y @ params["out_proj"], con.act_bsd)
+
+
+def _ssd_chunks(xs: torch.Tensor, Bv: torch.Tensor, Cv: torch.Tensor,
+                dt: torch.Tensor, dA: torch.Tensor, D: torch.Tensor,
+                Q: int) -> torch.Tensor:
+    """The chunked SSD over xs (B, L, H, P) with Bv, Cv (B, L, N), dt and
+    the log-decay dA (B, L, H) float32: y (B, L, H, P) float32, the D
+    skip included.  Every head is independent of the others."""
+    Bsz, L, nh, hd = xs.shape
+    ns = Bv.shape[-1]
+    nc = L // Q
 
     xs_c = xs.reshape(Bsz, nc, Q, nh, hd).to(f32)
     B_c = Bv.reshape(Bsz, nc, Q, ns).to(f32)
@@ -100,8 +131,9 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
     seg = torch.cumsum(dA_c, dim=2)            # (B, nc, Q, H) running decay
     # intra-chunk: y[t] = sum_{s<=t} C_t·B_s exp(seg_t - seg_s) dt_s x_s
     decay = seg[:, :, :, None, :] - seg[:, :, None, :, :]    # (B,nc,t,s,H)
-    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=xs.device))
     gmat = _masked_decay(decay, tri[None, None, :, :, None])
+    gmat = con.constrain(gmat, con.ssd_intra)   # heads over model
     cb = torch.einsum("bctn,bcsn->bcts", C_c, B_c)
     w = cb[..., None] * gmat * dt_c[:, :, None, :, :]          # (B,nc,t,s,H)
     y_intra = torch.einsum("bctsh,bcshp->bcthp", w, xs_c)
@@ -112,7 +144,7 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
     chunk_decay = torch.exp(seg[:, :, -1, :])                   # (B, nc, H)
 
     # inter-chunk recurrence over the chunk states: h before each chunk
-    h = torch.zeros((Bsz, nh, ns, hd), dtype=f32, device=x.device)
+    h = torch.zeros((Bsz, nh, ns, hd), dtype=f32, device=xs.device)
     h_prev = []
     for c in range(nc):
         h_prev.append(h)
@@ -122,10 +154,32 @@ def _ssd_forward_aligned(params: dict, x: torch.Tensor,
         * torch.exp(seg)[..., None]
 
     y = (y_intra + y_inter).reshape(Bsz, L, nh, hd)
-    y = y + xs.to(f32) * params["D"][None, None, :, None]
-    y = y.reshape(Bsz, L, di).to(x.dtype)
-    y = rms_norm(y * F.silu(z), params["norm"], cfg.norm_eps)
-    return y @ params["out_proj"]
+    return y + xs.to(f32) * D[None, None, :, None]
+
+
+def _chunks_on_mesh(xs, Bv, Cv, dt, dA, D, Q):
+    """``_ssd_chunks`` on each rank's local shards (``local_map``), laid
+    out as ``repro``'s ``ssd_intra``: batch over the dp group, heads over
+    model; B and C whole on every rank of a batch slice."""
+    mesh = xs.device_mesh
+    rules = ShardingRules(mesh)
+    b, h = rules.dp(xs.shape[0]), rules.tp(xs.shape[2])
+
+    def pl(*spec):
+        return list(placements(con.P(*spec), mesh))
+    heads4, heads3 = pl(b, None, h, None), pl(b, None, h)
+    ins = (heads4, pl(b, None, None), pl(b, None, None), heads3, heads3,
+           pl(h))
+    # B and C feed every head, D every batch row: their gradients are
+    # sums over the mesh dims that split the heads, resp. the batch
+    grads = tuple(grad_placements(p, heads4) for p in ins)
+
+    def local(*args):
+        with con.use_mesh(None):
+            return _ssd_chunks(*args, Q)
+    return local_map(local, out_placements=heads4, in_placements=ins,
+                     in_grad_placements=grads, device_mesh=mesh,
+                     redistribute_inputs=True)(xs, Bv, Cv, dt, dA, D)
 
 
 def ssd_decode_step(params: dict, x_t: torch.Tensor, state,

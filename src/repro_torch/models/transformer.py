@@ -39,6 +39,13 @@ enabled, ``forward_hidden`` runs each layer under
 ``torch.utils.checkpoint``, the counterpart of ``jax.checkpoint`` on
 ``repro``'s scan body: the same values, activations recomputed in the
 backward; under ``torch.no_grad`` nothing changes.
+
+On a mesh (``distributed.constraints.use_mesh``, the parameters, caches
+and batch distributed by ``distributed.sharding``) every function runs
+on DTensors and carries ``repro``'s sharding constraints at ``repro``'s
+call sites: ``act_bsd`` on the embedding and in the loss, ``act_bsd_sp``
+at each layer of ``forward_hidden`` under ``cfg.seq_shard_activations``,
+``logits_bsv`` on the loss's logits.  Outside a mesh they do nothing.
 """
 from __future__ import annotations
 
@@ -50,11 +57,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..distributed import constraints as con
 from . import attention as attn_mod
 from . import moe as moe_mod
 from . import rglru as rglru_mod
 from . import ssm as ssm_mod
-from .layers import init_dense, rms_norm, swiglu
+from .layers import MetaGenerator, init_dense, rms_norm, swiglu, take_rows
 
 Params = Dict[str, Any]
 
@@ -149,10 +157,14 @@ def init_params(cfg: ArchConfig, seed: int,
     """Random parameters from ``seed`` on ``device`` at ``repro``'s scales
     (normal embedding of std 0.02, dense weights of std
     ``1 / sqrt(fan_in)``, zero norms), drawn from a ``torch.Generator``
-    there; the numbers differ from ``jax.random``'s."""
+    there; the numbers differ from ``jax.random``'s.  On ``"meta"`` the
+    tensors have shapes and dtypes only (the dry run's stand-ins)."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
+    if dev.type == "meta":
+        gen = MetaGenerator()
+    else:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
     d, v = cfg.d_model, cfg.vocab
     params: Params = {
         "embed": init_dense((v, d), gen, scale=0.02, dtype=dtype),
@@ -262,14 +274,14 @@ def _embed(params: Params, cfg: ArchConfig,
     replaced by ``batch["prefix_emb"]`` (B, P, D) through
     ``frontend_proj``, as ``repro`` does (computed in the promoted type of
     the two, like ``jnp.einsum``)."""
-    x = params["embed"][batch["tokens"]]
+    x = take_rows(params["embed"], batch["tokens"])
     if cfg.frontend != "none" and "prefix_emb" in batch:
         proj = params["frontend_proj"]
         pre = batch["prefix_emb"]
         dt = torch.promote_types(pre.dtype, proj.dtype)
         pre = (pre.to(dt) @ proj.to(dt)).to(x.dtype)
         x = torch.cat([pre, x[:, pre.shape[1]:]], dim=1)
-    return x
+    return con.constrain(x, con.act_bsd)
 
 
 def _block(blk: Params, kind: str, x: torch.Tensor, cfg: ArchConfig,
@@ -314,9 +326,16 @@ def forward_hidden(params: Params, cfg: ArchConfig,
     positions = _positions(x)
     balance = torch.zeros((), dtype=torch.float32, device=x.device)
     remat = cfg.remat and torch.is_grad_enabled()
+    # the backward may recompute a layer on another thread (CUDA's
+    # autograd device threads), where the ambient mesh is not set: each
+    # layer sets it itself
+    mesh = con.current_mesh()
     for kind, blk in _layers(params, cfg):
         def layer(x, blk=blk, kind=kind):
-            x, _, bal = _block(blk, kind, x, cfg, positions, impl)
+            with con.use_mesh(mesh):
+                if cfg.seq_shard_activations:
+                    x = con.constrain(x, con.act_bsd_sp)
+                x, _, bal = _block(blk, kind, x, cfg, positions, impl)
             return x, bal
         if remat:
             # the forward draws no random numbers: no RNG state to keep
@@ -351,12 +370,13 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     labels = batch["labels"]
     head = _head(params, cfg)
 
-    xs = x[:, :-1].to(torch.float32)
-    logits = xs @ head.to(torch.float32)
+    xs = con.constrain(x[:, :-1].to(torch.float32), con.act_bsd)
+    logits = con.constrain(xs @ head.to(torch.float32), con.logits_bsv)
     lse = torch.logsumexp(logits, dim=-1)                    # (B, S-1)
 
     safe = torch.clamp(labels[:, 1:], min=0).long()
-    rows = head.T[safe].to(torch.float32)
+    rows = con.constrain(take_rows(head.T, safe).to(torch.float32),
+                         con.act_bsd)
     lbl_logit = (xs * rows).sum(-1)
 
     mask = (labels[:, 1:] >= 0).to(torch.float32)
@@ -430,7 +450,7 @@ def decode_step(params: Params, cfg: ArchConfig, token: torch.Tensor,
     to its true rows, the others left bit for bit as they were; K and V
     are written in every row (a row at or past a slot's length, which its
     own next step rewrites before reading)."""
-    x = params["embed"][token]
+    x = take_rows(params["embed"], token)
     seen = {"attn": 0, "rec": 0, "ssm": 0}
     for kind, blk in _layers(params, cfg):
         h = rms_norm(x, blk["ln1"], cfg.norm_eps)

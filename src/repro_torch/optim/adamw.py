@@ -8,7 +8,10 @@ step (``delta = m̂ / (sqrt(v̂) + eps) + wd·p``).  The moments ``mu`` and
 ``nu`` are float32 whatever the parameters' dtype; every update is
 computed in float32 and cast back to each leaf's dtype.  ``update``
 returns new tensors and leaves its inputs as they were, as ``repro``'s
-pure functions do.
+pure functions do.  On a mesh the leaves are DTensors, each gradient on
+its parameter's placements: every update is elementwise on the local
+shards, and ``global_norm`` reduces each leaf's sum to a replicated
+scalar.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ import torch
 
 from .. import tree as tree_mod
 from ..configs.base import ArchConfig
+from ..distributed.sharding import replicate
 from ..models import transformer
 
 f32 = torch.float32
@@ -59,9 +63,10 @@ def cosine_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init(params) -> AdamWState:
-    """Step 0 and zero float32 moments on each leaf's device."""
+    """Step 0 and zero float32 moments like each leaf (on its device, or
+    its placements for a DTensor)."""
     def zeros(p):
-        return torch.zeros(p.shape, dtype=f32, device=p.device)
+        return torch.zeros_like(p, dtype=f32)
     first = tree_mod.leaves(params)[0]
     return AdamWState(step=torch.zeros((), dtype=torch.int32,
                                        device=first.device),
@@ -70,8 +75,9 @@ def init(params) -> AdamWState:
 
 
 def global_norm(tree) -> torch.Tensor:
-    """sqrt of the float32 squares summed leaf by leaf in tree order."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(f32)))
+    """sqrt of the float32 squares summed leaf by leaf in tree order (a
+    DTensor leaf's sum reduced over the mesh first)."""
+    return torch.sqrt(sum(replicate(torch.sum(torch.square(x.to(f32))))
                           for x in tree_mod.leaves(tree)))
 
 

@@ -9,6 +9,14 @@ while the arithmetic is unchanged).  Gradients come from
 ``torch.autograd.grad`` on ``detach().requires_grad_(True)`` views of
 the parameters, so the caller's tensors are never touched.
 
+On a mesh (every parameter, state and batch leaf a DTensor, the step
+called under ``distributed.constraints.use_mesh``) each gradient is put
+back on its parameter's placements with ``redistribute`` before AdamW
+sees it (``repro``'s ``out_shardings``: autograd returns a gradient
+``Partial`` over the mesh dims its reduction spans), the microbatch
+sums start from zeros on those placements, and the metrics come back
+as plain (full, replicated) tensors.
+
 ``make_serve_step`` builds the single-token decode step used by the
 serving engine: greedy (``argmax``) at temperature 0, else a sample from
 ``softmax(logits / temperature)`` drawn with ``torch.multinomial`` on the
@@ -23,9 +31,11 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from .. import tree as tree_mod
 from ..configs.base import ArchConfig
+from ..distributed.sharding import replicate
 from ..models import transformer
 from ..optim import adamw
 
@@ -38,14 +48,27 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     return loss
 
 
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A gradient on its parameter's placements (no-op off a mesh)."""
+    if isinstance(p, DTensor):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _plain(x):
+    """A metric as a plain tensor: a DTensor's full value."""
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def _value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, metrics, gradients in the parameters' tree), the loss and
-    metrics detached."""
+    """(loss, metrics, gradients in the parameters' tree, each on its
+    parameter's placements), the loss and metrics detached."""
     leaves = [p.detach().requires_grad_(True)
               for p in tree_mod.leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(tree_mod.unflatten(params, leaves), batch)
         grads = torch.autograd.grad(loss, leaves)
+    grads = [_placed_like(g, p) for g, p in zip(grads, leaves)]
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, tree_mod.unflatten(params, grads)
 
@@ -68,8 +91,7 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptimizerConfig,
             mbs = {k: v.reshape((microbatches, v.shape[0] // microbatches)
                                 + tuple(v.shape[1:]))
                    for k, v in batch.items()}
-            gsum = [torch.zeros(p.shape, dtype=torch.float32,
-                                device=p.device)
+            gsum = [torch.zeros_like(p, dtype=torch.float32)
                     for p in tree_mod.leaves(params)]
             lsum = None
             for i in range(microbatches):
@@ -85,7 +107,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: adamw.OptimizerConfig,
 
         new_params, new_opt, opt_metrics = adamw.update(
             opt_cfg, grads, opt_state, params)
-        metrics = {**metrics, **opt_metrics, "loss": loss}
+        metrics = {k: _plain(v) for k, v in
+                   {**metrics, **opt_metrics, "loss": loss}.items()}
         return new_params, new_opt, metrics
 
     return train_step
@@ -107,7 +130,8 @@ def make_serve_step(cfg: ArchConfig, temperature: float = 0.0, *,
             probs = torch.softmax(logits.float() / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
-            nxt = torch.argmax(logits, dim=-1)
+            # DTensor logits: every rank takes the argmax of the whole row
+            nxt = torch.argmax(replicate(logits), dim=-1)
         return nxt.to(torch.int32), cache, logits
     return serve_step
 

@@ -5,6 +5,9 @@
   on (re)start the trainer resumes from the latest manifest, including
   the data stream's position (no sample skew after preemption).
 * **emergency save**: SIGTERM triggers a final checkpoint.
+* **elastic re-shard**: checkpoints are stored unsharded (every
+  DTensor gathered to its full value); a restart may bring up a
+  different mesh, and the restored tensors are distributed on it.
 * **straggler telemetry**: each step's wall time feeds an EWMA; steps
   slower than ``straggler_factor`` times the EWMA are recorded with
   their index.
@@ -13,9 +16,16 @@ Everything lives on ``TrainerConfig.device`` (``"cuda"`` by default;
 without a card it raises).  The step function is called as it is, with
 no compilation.  A step is timed on the host's clock up to one
 synchronisation, ``float(metrics["loss"])`` (``repro``'s
-``block_until_ready``); nothing else in a step syncs.  The mesh layout
-of ``repro``'s trainer (``mesh``, ``shardings``) waits for the port's
-sharding rules (ROADMAP queue 1, item 9.6).
+``block_until_ready``); nothing else in a step syncs.
+
+``mesh`` (a ``DeviceMesh`` with ``repro``'s axis names, e.g.
+``launch.mesh.make_local_mesh()``) lays the training state out as
+``repro``'s docstring promises: parameters and AdamW state are DTensors
+on ``shardings`` (a ``(param specs, opt specs)`` pair of spec trees;
+by default ``distributed.sharding``'s rules), each batch is distributed
+on ``batch_spec``, and the step runs under ``use_mesh``.  ``repro``'s
+``Trainer`` takes the same two arguments and reads neither (ROADMAP.md
+§3).  Without a mesh nothing changes.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ import torch
 from ..checkpoint.manager import CheckpointManager
 from ..configs.base import ArchConfig
 from ..core.device import resolve_device
+from ..distributed import constraints as con
+from ..distributed import sharding as shard_mod
 from ..models import transformer
 from ..optim import adamw
 from . import step as step_mod
@@ -48,11 +60,16 @@ class TrainerConfig:
 
 class Trainer:
     def __init__(self, cfg: ArchConfig, opt_cfg: adamw.OptimizerConfig,
-                 tcfg: TrainerConfig):
+                 tcfg: TrainerConfig, mesh=None, shardings=None):
         self.cfg = cfg
         self.opt_cfg = opt_cfg
         self.tcfg = tcfg
         self.device = resolve_device(tcfg.device)
+        self.mesh = mesh
+        self.shardings = shardings
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"mesh on {mesh.device_type}, trainer on "
+                             f"{self.device}")
         self.ckpt = (CheckpointManager(tcfg.ckpt_dir)
                      if tcfg.ckpt_dir else None)
         self.step_fn = step_mod.make_train_step(
@@ -61,16 +78,37 @@ class Trainer:
         self.straggler_steps: List[int] = []
 
     # ------------------------------------------------------------------
-    def init_state(self):
-        """Fresh parameters from ``tcfg.seed`` and a fresh AdamW state."""
+    def _fresh_state(self):
         params = transformer.init_params(self.cfg, self.tcfg.seed,
                                          device=self.device,
                                          dtype=self.tcfg.param_dtype)
         return params, adamw.init(params)
 
+    def state_specs(self, params, opt_state):
+        """(param specs, opt specs): ``shardings``, or the rules'."""
+        if self.shardings is not None:
+            return self.shardings
+        pspecs = shard_mod.param_shardings(self.mesh, self.cfg, params)
+        return pspecs, shard_mod.opt_shardings(pspecs, opt_state)
+
+    def place(self, params, opt_state):
+        """Full tensors as the trainer holds them: DTensors on the
+        mesh's layout, or as they are without a mesh."""
+        if self.mesh is None:
+            return params, opt_state
+        pspecs, ospecs = self.state_specs(params, opt_state)
+        return (shard_mod.distribute_tree(params, self.mesh, pspecs),
+                shard_mod.distribute_tree(opt_state, self.mesh, ospecs))
+
+    def init_state(self):
+        """Fresh parameters from ``tcfg.seed`` and a fresh AdamW state,
+        placed on the mesh if there is one."""
+        return self.place(*self._fresh_state())
+
     def restore_or_init(self):
         """(params, opt_state, start step): the latest checkpoint's, or a
-        fresh state at step 0."""
+        fresh state at step 0, placed on the mesh if there is one.  A
+        checkpoint holds full tensors, so it restores on any mesh."""
         params, opt_state = self.init_state()
         start_step = 0
         if self.ckpt is not None:
@@ -78,9 +116,18 @@ class Trainer:
             if latest is not None:
                 trees, manifest = self.ckpt.restore(
                     latest, {"params": params, "opt": opt_state})
-                params, opt_state = trees["params"], trees["opt"]
+                params, opt_state = self.place(trees["params"],
+                                               trees["opt"])
                 start_step = manifest["step"]
         return params, opt_state, start_step
+
+    def _batch(self, arrays):
+        batch = {k: torch.from_numpy(v).to(self.device)
+                 for k, v in arrays.items()}
+        if self.mesh is None:
+            return batch
+        return shard_mod.distribute_tree(
+            batch, self.mesh, shard_mod.batch_shardings(self.mesh, batch))
 
     # ------------------------------------------------------------------
     def fit(self, data, start_step: Optional[int] = None):
@@ -100,11 +147,11 @@ class Trainer:
 
         ewma = None
         for step in range(step0, self.tcfg.steps):
-            batch = {k: torch.from_numpy(v).to(self.device)
-                     for k, v in data.batch_at(step).items()}
+            batch = self._batch(data.batch_at(step))
             t0 = time.perf_counter()
-            params, opt_state, metrics = self.step_fn(params, opt_state,
-                                                      batch)
+            with con.use_mesh(self.mesh):
+                params, opt_state, metrics = self.step_fn(params, opt_state,
+                                                          batch)
             loss = float(metrics["loss"])
             dt = time.perf_counter() - t0
 

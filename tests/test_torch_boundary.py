@@ -377,7 +377,9 @@ def test_chip_smoke_fails_without_cuda_or_checkout(tmp_path):
 
 MESH_MODULES = ("compat.py", "distributed/__init__.py",
                 "distributed/engine.py", "distributed/compression.py",
-                "distributed/wire.py")
+                "distributed/wire.py", "distributed/sharding.py",
+                "distributed/constraints.py", "launch/mesh.py",
+                "launch/specs.py", "launch/dryrun.py")
 
 
 def test_mesh_entry_points_default_to_cuda():
@@ -412,6 +414,10 @@ def test_mesh_modules_import_neither_jax_nor_repro():
         tree = ast.parse((root / name).read_text(), filename=name)
         assert not set(_imported_roots(tree)) & set(FORBIDDEN), name
     probe = ("import sys, repro_torch.compat, repro_torch.distributed\n"
+             "import repro_torch.distributed.sharding\n"
+             "import repro_torch.distributed.constraints\n"
+             "import repro_torch.launch.mesh, repro_torch.launch.specs\n"
+             "import repro_torch.launch.dryrun\n"
              "bad = [m for m in sys.modules if m.split('.')[0] in "
              f"{FORBIDDEN!r}]\n"
              "assert not bad, bad\n")
@@ -419,3 +425,23 @@ def test_mesh_modules_import_neither_jax_nor_repro():
                          text=True, timeout=120,
                          env=dict(os.environ, PYTHONPATH=str(REPO / "src")))
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+def test_lm_mesh_entry_points_default_to_cuda():
+    """``make_local_mesh``, ``make_production_mesh`` and ``Trainer(mesh=)``
+    run on the card by default and raise without one, leaving no process
+    group behind."""
+    from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
+    from repro_torch.optim import adamw
+    from repro_torch.training.trainer import Trainer, TrainerConfig
+
+    if torch.cuda.is_available():
+        return
+    cfg = get_arch("llama3p2_1b").reduced()
+    for call in (make_local_mesh, make_production_mesh,
+                 lambda: make_production_mesh(multi_pod=True),
+                 lambda: Trainer(cfg, adamw.OptimizerConfig(),
+                                 TrainerConfig(), mesh=object())):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not torch.distributed.is_initialized()

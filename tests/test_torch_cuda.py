@@ -1550,3 +1550,95 @@ def test_cuda_path_corpus_equals_cpu(cuda):
         for key in ("tokens", "labels"):
             assert a[key].tobytes() == b[key].tobytes()
     assert kernels.launch_counts()["frontier_hop"] > before
+
+
+# ---------------------------------------------------------------------------
+# the LM's mesh layout on the card (tests/torch_shard_parity.py cuda)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def cuda_shard_run(tmp_path_factory):
+    """One process on the card with a 1 x 1 NCCL mesh; its pickled
+    results."""
+    import os
+    import pickle
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the mesh runs on the card")
+    here = Path(__file__).resolve().parent
+    out = tmp_path_factory.mktemp("cuda_shard") / "shard.pkl"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), str(here)]))
+    proc = subprocess.run(
+        [sys.executable, str(here / "torch_shard_parity.py"), "cuda",
+         str(out)], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:]
+    with open(out, "rb") as fh:
+        return pickle.load(fh)
+
+
+def _max_diff(a, b):
+    from repro_torch import tree as tree_mod
+    return max(float(np.abs(np.asarray(x, np.float64)
+                            - np.asarray(y, np.float64)).max())
+               for x, y in zip(tree_mod.leaves(a), tree_mod.leaves(b)))
+
+
+SHARD_CUDA_ARCHS = ["llama3p2_1b", "qwen3_moe_30b_a3b",
+                    "llama4_maverick_400b_a17b", "mamba2_780m",
+                    "recurrentgemma_9b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SHARD_CUDA_ARCHS)
+def test_cuda_sharded_train_step_equals_unsharded(cuda_shard_run, arch):
+    """A train step laid out on the 1 x 1 NCCL mesh (every leaf a
+    DTensor) equals the unsharded step on the card: on one rank every
+    redistribute is a no-op (within 1e-6 of each leaf's largest entry)."""
+    assert cuda_shard_run["mesh"] == ((1, 1), "cuda", "nccl")
+    got = cuda_shard_run[f"arch/{arch}"]
+    want = cuda_shard_run[f"arch_plain/{arch}"]
+    assert got["grads_on_param_placements"]
+    np.testing.assert_allclose(got["loss"], want["loss"], rtol=1e-6)
+    np.testing.assert_allclose(got["grad_norm"], want["grad_norm"],
+                               rtol=1e-6)
+    from repro_torch import tree as tree_mod
+    for (path, a), b in zip(tree_mod.leaves_with_path(got["grads"]),
+                            tree_mod.leaves(want["grads"])):
+        assert float(np.abs(a - b).max()) <= 1e-6 * float(
+            np.abs(b).max()) + 1e-12, path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SHARD_CUDA_ARCHS)
+def test_cuda_sharded_serve_runs_the_kernels_on_local_shards(
+        cuda_shard_run, arch):
+    """``impl=None`` on DTensors on the card: K6 and K7 through
+    ``local_map`` in every attention call (mamba2 has none), equal to
+    the unsharded kernel path within 2e-5 (the float32 kernels against
+    themselves)."""
+    got = cuda_shard_run[f"serve/{arch}"]
+    want = cuda_shard_run[f"serve_plain/{arch}"]
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as ttf
+    attn = sum(k in ttf.ATTN_KINDS
+               for k in ttf.layer_kinds(get_arch(arch).reduced()))
+    assert got["routes"] == {"local_kernel": 3 * attn, "plain": 0}
+    launches = cuda_shard_run[f"serve_launches/{arch}"]
+    assert launches["flash_attention"] == attn
+    assert launches["decode_attention"] == 2 * attn
+    assert _max_diff(got["prefill_logits"], want["prefill_logits"]) <= 2e-5
+    assert _max_diff(got["decode_logits"], want["decode_logits"]) <= 2e-5
+    assert _max_diff(got["cache"], want["cache"]) <= 2e-5
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_wrappers_refuse_dtensors(cuda_shard_run):
+    rec = cuda_shard_run["constrain"]
+    assert rec["flash_raises"] == "TypeError"
+    assert rec["decode_raises"] == "TypeError"
+    assert rec["inside_plain_raises"] == "TypeError"
