@@ -104,14 +104,31 @@ Phases, one JSON line each (``{"phase": ...}``):
    how many picks it counts more walks for); then ``enumerate_batch``
    counting and with ``first_n=1000`` on one default engine, equal to
    the batch phase's checked results (lines ``mesh_1_stats``,
-   ``mesh_1``: stage seconds, ``BatchTiming``, edge bytes a rank, peak
-   ``max_memory_allocated``, all-reduce calls and bytes, launches).
-   ``mesh_gloo2``: two spawned processes on the one card, a 1 x 2 gloo
-   mesh (the edges split in two; gloo reduces on the host, ``"wire":
-   "host"``), loading the graph's arrays from a temporary file this
-   script writes; their tables equal ``mesh_1``'s (distances exactly,
-   DP within rtol 1e-5).  Then ``mesh_check``: K5 launched in
-   ``mesh_1``, K3, K4, K6 and K7 never.
+   ``mesh_1``: stage seconds, the row's share (queries and keys owned,
+   BFS, engine and gather seconds, payload bytes), ``BatchTiming``,
+   edge bytes a rank, peak ``max_memory_allocated``, collective calls
+   and bytes, launches).  ``mesh_gloo2``: two spawned processes on the
+   one card, a 1 x 2 gloo mesh (the edges split in two; gloo reduces on
+   the host, ``"wire": "host"``), loading the graph's arrays from a
+   temporary file this script writes; their tables equal ``mesh_1``'s
+   (distances exactly, DP within rtol 1e-5).  ``mesh_split2``: two such
+   processes as a 2 x 1 gloo mesh (data = 2; NCCL refuses two ranks on
+   one card), ``enumerate_batch`` on the same legs, each row
+   enumerating the picks whose source it owns (s mod 2) on one default
+   engine a rank, each leg's launches counted from 0 just before it;
+   both ranks' gathered items equal ``mesh_1``'s (the fused flag apart),
+   with its cache stats and non-fused counters (a line a leg: queries
+   owned, each rank's wall, ``BatchTiming`` and stage seconds, the
+   call's wall beside ``mesh_1``'s, gather calls and bytes, K5 launches
+   a rank).  ``wire``: ``compressed_all_reduce`` of a float32 tree of
+   lm100m's parameter shapes (107 M elements) from the seed, on the 2 x
+   1 gloo ranks and on a 1 x 1 NCCL group in this process; each rank's
+   sum bit-identical to the int64 sum of every rank's quantized values,
+   rebuilt from the seeds; the bytes on the wire beside an int32
+   carry's and float32's, and on NCCL the ms of packing, the
+   all-reduces and unpacking.  Then ``mesh_check``: K5 launched in
+   ``mesh_1`` and on each rank of ``mesh_split2``, K3, K4, K6 and K7
+   never in ``mesh_1``.
 10. ``kernel``  — the attention kernels K6 and K7 against their plain
    versions at fixed shapes: K6 at (B=1, L=4096, H=16, Hkv=8, D=128),
    causal, windowed (2048), and with Lq < Lk, each in float32 (the
@@ -226,7 +243,8 @@ Phases, one JSON line each (``{"phase": ...}``):
 
 The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 7, phase 8, the
-``mesh_1`` leg of phase 9, phase 11, phase 13, each leg of phase 15,
+``mesh_1`` leg and, in each rank, each ``mesh_split2`` leg of phase 9,
+phase 11, phase 13, each leg of phase 15,
 phase 16 and the ``shard_train`` and ``shard_serve`` legs of phase 17,
 each read just after its phase or leg.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
@@ -251,6 +269,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -1905,8 +1924,8 @@ def dp_rel_err(np, got, want) -> float:
 def mesh_one(torch, tc, kernels, compat, dist_mod, g, qs, dev):
     """``mesh_1``: a 1 x 1 NCCL mesh in this process; the stats and the
     two ``enumerate_batch`` legs on one default engine.  Returns the
-    stats, the two outputs and the launches of the whole leg (counted
-    from 0 just before it)."""
+    stats, the two outputs and their walls, and the launches of the whole
+    leg (counted from 0 just before it)."""
     import torch.distributed as tdist
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
@@ -1933,21 +1952,25 @@ def mesh_one(torch, tc, kernels, compat, dist_mod, g, qs, dev):
               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
               **comm})
         engine = tc.BatchPathEnum(device=dev)
-        outs = {}
-        for leg, kw in (("count_only", dict(count_only=True)),
-                        ("first_n", dict(count_only=False, first_n=1000))):
+        outs, walls = {}, {}
+        for leg, kw in MESH_ENUM_LEGS:
             before = kernels.launch_counts()
+            comm0 = dpe.comm_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = dpe.enumerate_batch(qs, engine=engine, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             now = kernels.launch_counts()
+            comm1 = dpe.comm_counts()
             tm = out.timing
             emit({"phase": "mesh", "leg": "mesh_1", "enumerate": leg,
                   "queries": len(qs), "wall_s": wall,
-                  "bfs_s": dpe.last_timing["bfs_s"],
-                  "dp_s": dpe.last_timing["dp_s"],
+                  **{key: dpe.last_split[key] for key in MESH_SPLIT_KEYS},
+                  "gather_calls": comm1["all_gather_calls"]
+                  - comm0["all_gather_calls"],
+                  "gather_bytes": comm1["all_gather_bytes"]
+                  - comm0["all_gather_bytes"],
                   "distance_s": tm.distance_seconds,
                   "index_s": tm.index_seconds,
                   "optimize_s": tm.optimize_seconds,
@@ -1966,12 +1989,12 @@ def mesh_one(torch, tc, kernels, compat, dist_mod, g, qs, dev):
                   "launches": {n: now[n] - before[n] for n in
                                ("frontier_fused_masks",
                                 "frontier_deque_round", "frontier_hop")}})
-            outs[leg] = out
+            outs[leg], walls[leg] = out, wall
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
     finally:
         tdist.destroy_process_group()
-    return stats, outs, launches, comm
+    return stats, outs, walls, launches, comm
 
 
 def plain_mesh_dp(torch, np, g, k, ds, dt, dev):
@@ -2076,26 +2099,62 @@ def check_mesh_one(torch, np, tc, est, g, picks, stats, outs, batch_runs,
 
 MESH_WORKERS = 2
 MESH_WORKER_TIMEOUT = 600.0
+# enumerate_batch's legs in mesh_1 and mesh_split2, on one engine a rank
+MESH_ENUM_LEGS = (("count_only", dict(count_only=True)),
+                  ("first_n", dict(count_only=False, first_n=1000)))
+# a rank's share of an enumerate_batch call (DistributedPathEnum.last_split)
+MESH_SPLIT_KEYS = ("owned_queries", "owned_keys", "bfs_s", "run_s",
+                   "gather_s", "payload_bytes")
+PLAN_FIELDS = ("method", "cut", "preliminary", "used_full_estimator",
+               "t_dfs", "t_join", "est_results")
 
 
-def mesh_gloo2(np, compat, g, qs, stats, dev, tmp):
-    """``mesh_gloo2``: two processes on the one card, a 1 x 2 gloo mesh,
-    each loading the graph's arrays from a file written here; their
-    tables against ``mesh_1``'s."""
+def item_summary(item) -> dict:
+    """A ``BatchItem`` as plain values: result (count, paths in order,
+    lengths, Fig.-6 stats, exhausted), plan fields and the index-cached,
+    deduplicated and shared flags (the fused flag is each engine's own)."""
+    r = item.result
+    return {"key": (item.s, item.t, item.k), "count": int(r.count),
+            "exhausted": bool(r.exhausted),
+            "stats": dataclasses.asdict(r.stats), "paths": r.as_tuples(),
+            "lengths": [int(x) for x in r.lengths],
+            "plan": tuple(getattr(item.plan, f) for f in PLAN_FIELDS),
+            "flags": (item.index_cached, item.deduplicated, item.shared)}
+
+
+def output_summary(out) -> dict:
+    """A ``BatchOutput``'s items, cache stats and non-fused counters."""
+    return {"items": [item_summary(i) for i in out.items],
+            "cache_stats": dataclasses.astuple(out.cache_stats),
+            "counters": (out.distinct_queries, out.sharing_groups,
+                         out.shared_queries)}
+
+
+def write_mesh_data(np, g, qs, tmp) -> tuple:
+    """The graph's arrays, the queries and k in one ``.npz`` the mesh
+    workers load; returns the path and the seconds the write took."""
     data = Path(tmp) / "graph.npz"
     t0 = time.perf_counter()
     np.savez(data, n=g.n, indptr=g.indptr, indices=g.indices,
              rindptr=g.rindptr, rindices=g.rindices, esrc=g.esrc,
              edst=g.edst, queries=qs, k=K_LARGE)
-    write_s = time.perf_counter() - t0
+    return data, time.perf_counter() - t0
+
+
+def run_mesh_workers(compat, leg, data, dev, tmp, seed):
+    """This script once a rank of a two-process gloo mesh on the one card
+    (``--mesh-leg leg``); returns each rank's last JSON line, the path
+    pattern of their output files, and the wall of the whole run."""
     init = f"tcp://127.0.0.1:{compat.free_port()}"
-    out = str(Path(tmp) / "rank%d.npz")
+    out = str(Path(tmp) / (f"{leg}_rank%d" +
+                           (".npz" if leg == "gloo2" else ".pkl")))
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank", str(r),
-         "--mesh-init", init, "--mesh-data", str(data), "--mesh-out", out,
-         "--mesh-device", str(dev)], stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for r in range(MESH_WORKERS)]
+         "--mesh-leg", leg, "--mesh-init", init, "--mesh-data", str(data),
+         "--mesh-out", out, "--mesh-device", str(dev), "--seed", str(seed)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(MESH_WORKERS)]
     try:
         res = [p.communicate(timeout=MESH_WORKER_TIMEOUT) for p in procs]
     except subprocess.TimeoutExpired:
@@ -2106,12 +2165,21 @@ def mesh_gloo2(np, compat, g, qs, stats, dev, tmp):
                 p.kill()
                 p.wait()
     wall = time.perf_counter() - t0
-    check(res is not None, f"mesh_gloo2: the ranks ran past "
+    check(res is not None, f"{leg}: the ranks ran past "
                            f"{MESH_WORKER_TIMEOUT} s")
     for r, (p, (so, se)) in enumerate(zip(procs, res)):
-        check(p.returncode == 0, f"mesh_gloo2 rank {r} exited "
+        check(p.returncode == 0, f"{leg} rank {r} exited "
                                  f"{p.returncode}: {se[-3000:]}")
-    lines = [json.loads(so.strip().splitlines()[-1]) for so, _se in res]
+    return [json.loads(so.strip().splitlines()[-1]) for so, _se in res], \
+        out, wall
+
+
+def mesh_gloo2(np, compat, data, write_s, qs, stats, dev, tmp, seed):
+    """``mesh_gloo2``: two processes on the one card, a 1 x 2 gloo mesh,
+    each loading the graph's arrays from ``data``; their tables against
+    ``mesh_1``'s."""
+    lines, out, wall = run_mesh_workers(compat, "gloo2", data, dev, tmp,
+                                        seed)
     qp, qsx, tot, (ds, dt) = stats
     errs = {}
     for r in range(MESH_WORKERS):
@@ -2131,23 +2199,222 @@ def mesh_gloo2(np, compat, g, qs, stats, dev, tmp):
           "ranks": lines, "dp_max_rel_err_vs_mesh_1": errs})
 
 
+def mesh_split2(compat, data, qs, outs, walls, dev, tmp, seed, smi):
+    """``mesh_split2``: two processes on the one card, a 2 x 1 gloo mesh
+    (data = 2): each row enumerates the picks whose source it owns and
+    both ranks return the gathered output, which must equal ``mesh_1``'s
+    items (the fused flag apart), cache stats and non-fused counters;
+    then the ranks' ``wire`` leg.  Returns each rank's K5 launches over
+    the two legs."""
+    import pickle
+    lines, out, wall = run_mesh_workers(compat, "split2", data, dev, tmp,
+                                        seed)
+    for r in range(MESH_WORKERS):
+        # this script's own workers wrote these files
+        with open(out % r, "rb") as fh:
+            got = pickle.load(fh)
+        for leg, _kw in MESH_ENUM_LEGS:
+            want = output_summary(outs[leg])
+            for a, b in zip(got[leg]["items"], want["items"]):
+                check(a == b, f"mesh_split2 rank {r} {leg} {b['key']}: "
+                              f"differs from mesh_1's item")
+            check(len(got[leg]["items"]) == len(want["items"]) == len(qs),
+                  f"mesh_split2 rank {r} {leg}: item counts differ")
+            check(got[leg]["cache_stats"] == want["cache_stats"]
+                  and got[leg]["counters"] == want["counters"],
+                  f"mesh_split2 rank {r} {leg}: counters "
+                  f"{got[leg]['cache_stats']} {got[leg]['counters']} "
+                  f"against mesh_1's {want['cache_stats']} "
+                  f"{want['counters']}")
+    k5 = [sum(leg["launches"]["frontier_fused_masks"] for leg in ln["legs"])
+          for ln in lines]
+    for i, (leg, _kw) in enumerate(MESH_ENUM_LEGS):
+        ranks = [ln["legs"][i] for ln in lines]
+        emit({"phase": "mesh", "leg": "mesh_split2", "enumerate": leg,
+              "mesh": [MESH_WORKERS, 1], "backend": lines[0]["backend"],
+              "queries": len(qs),
+              "owned_queries": [x["owned_queries"] for x in ranks],
+              "owned_keys": [x["owned_keys"] for x in ranks],
+              "wall_s": max(x["wall_s"] for x in ranks),
+              "mesh_1_wall_s": walls[leg],
+              "rank_wall_s": [x["wall_s"] for x in ranks],
+              "rank_bfs_s": [x["bfs_s"] for x in ranks],
+              "rank_run_s": [x["run_s"] for x in ranks],
+              "rank_gather_s": [x["gather_s"] for x in ranks],
+              "rank_timing": [x["row_timing"] for x in ranks],
+              "gather_calls": [x["all_gather_calls"] for x in ranks],
+              "gather_bytes": [x["all_gather_bytes"] for x in ranks],
+              "all_reduce_calls": [x["all_reduce_calls"] for x in ranks],
+              "k5_launches": [x["launches"]["frontier_fused_masks"]
+                              for x in ranks],
+              "launches": [x["launches"] for x in ranks],
+              "max_memory_allocated": [x["max_memory_allocated"]
+                                       for x in ranks],
+              "processes_wall_s": wall, "card": smi})
+    emit({"phase": "mesh", "leg": "wire", "group": "gloo_2x1",
+          "card": smi, **{key: lines[0]["wire_leg"][key] for key in
+                          ("leaves", "elements", "wire_bytes",
+                           "int32_carry_bytes", "float32_bytes")},
+          "ranks": [{key: v for key, v in ln["wire_leg"].items()
+                     if key not in ("leaves", "elements", "wire_bytes",
+                                    "int32_carry_bytes", "float32_bytes")}
+                    for ln in lines]})
+    return k5
+
+
+def wire_shapes():
+    """lm100m's parameter shapes (``launch.train``'s preset, 107 M
+    elements), in the port's tree order."""
+    import types
+    import torch
+    from repro_torch import tree as tree_mod
+    from repro_torch.launch import specs
+    from repro_torch.launch.train import build_arch
+    cfg = build_arch(types.SimpleNamespace(preset="lm100m"))
+    return [tuple(x.shape) for x in tree_mod.leaves(
+        specs.param_specs(cfg, dtype=torch.float32))]
+
+
+def wire_tree(torch, shapes, seed, rank, dev):
+    """Rank ``rank``'s float32 tree (a list of leaves) from the seed, of a
+    magnitude that grows with the rank."""
+    gen = torch.Generator(device=dev).manual_seed(1000 * seed + rank)
+    return [torch.randn(shape, generator=gen, device=dev) * (1.0 + rank)
+            for shape in shapes]
+
+
+def wire_leg(torch, group, dev, seed, staged: bool) -> dict:
+    """``compressed_all_reduce`` of this rank's ``wire_tree`` over
+    ``group``; each leaf bit-identical to the int64 sum of every rank's
+    quantized values on the shared scale, rebuilt here from the seeds.
+    Bytes on the wire beside the int32 carry's and float32's; the
+    call's ms, and with ``staged`` each stage's (scales and quantize
+    with ``pack_lanes``, the MAX and SUM all-reduces, ``unpack_lanes``
+    and dequantize) by CUDA events, median of three, and a float32
+    all-reduce of the same tree."""
+    from repro_torch.distributed import Wire, compressed_all_reduce
+    from repro_torch.distributed.compression import pack_lanes, unpack_lanes
+    from repro_torch.distributed.wire import ReduceOp
+    shapes = wire_shapes()
+    wire = Wire(group)
+    tree = wire_tree(torch, shapes, seed, wire.rank, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_all_reduce(tree, group, wire=wire)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = wire.counts()
+    trees = [tree if r == wire.rank else
+             wire_tree(torch, shapes, seed, r, dev) for r in range(wire.size)]
+    for i in range(len(shapes)):
+        xs = [t[i] for t in trees]
+        scale = torch.stack([x.abs().max() / 127.0 + 1e-12 for x in xs]).max()
+        total = sum(torch.clamp(torch.round(x / scale), -127, 127).to(
+            torch.int64) for x in xs)
+        want = total.to(torch.float32) * scale
+        check(torch.equal(got[i].view(torch.int32), want.view(torch.int32)),
+              f"wire ({wire.backend}, rank {wire.rank}): leaf {i} "
+              f"{shapes[i]} differs from the int64 sum")
+    del trees, want, total
+    numels = [math.prod(sh) for sh in shapes]
+    res = {"leaves": len(shapes), "elements": sum(numels),
+           "wire_bytes": counts["all_reduce_bytes"],
+           "int32_carry_bytes": sum(4 * n + 4 for n in numels),
+           "float32_bytes": sum(4 * n for n in numels),
+           "backend": wire.backend, "ranks": wire.size, "rank": wire.rank,
+           "first_call_s": first_s, "exact": True}
+    check(res["wire_bytes"] == sum(4 * -(-n // 2) + 4 for n in numels),
+          f"wire: {res['wire_bytes']} bytes on the wire")
+
+    def timed(fn, reps=3):
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+    res["call_ms"] = timed(lambda: compressed_all_reduce(tree, group,
+                                                         wire=wire))
+    if not staged:
+        return res
+
+    def stages():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        local = [(x.abs().max() / 127.0 + 1e-12).reshape(1) for x in tree]
+        ev[1].record()
+        scales = [wire.all_reduce(sc, ReduceOp.MAX)[0] for sc in local]
+        ev[2].record()
+        words = [pack_lanes(torch.clamp(torch.round(x / sc), -127, 127))
+                 for x, sc in zip(tree, scales)]
+        ev[3].record()
+        totals = [wire.all_reduce(w, ReduceOp.SUM) for w in words]
+        ev[4].record()
+        outs = [unpack_lanes(tot, x.numel(), wire.size).reshape(
+            x.shape).to(torch.float32) * sc
+            for tot, x, sc in zip(totals, tree, scales)]
+        ev[5].record()
+        torch.cuda.synchronize()
+        ms = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
+        return ms[0] + ms[2], ms[1] + ms[3], ms[4], outs
+    runs = []
+    for _ in range(3):
+        *ms, outs = stages()
+        for i, leaf in enumerate(outs):
+            check(torch.equal(leaf.view(torch.int32),
+                              got[i].view(torch.int32)),
+                  f"wire: the staged leaf {i} differs from the call's")
+        runs.append(ms)
+    del outs
+    res.update({"pack_ms": statistics.median(r[0] for r in runs),
+                "all_reduce_ms": statistics.median(r[1] for r in runs),
+                "unpack_ms": statistics.median(r[2] for r in runs)})
+    res["float32_all_reduce_ms"] = timed(
+        lambda: [wire.all_reduce(x.clone(), ReduceOp.SUM) for x in tree])
+    return res
+
+
+def wire_one(torch, compat, dev, seed, smi) -> None:
+    """``wire`` on a 1 x 1 NCCL group in this process (its own process
+    group, destroyed afterwards)."""
+    import torch.distributed as tdist
+    mesh = compat.make_mesh((1, 1), ("data", "model"), device=dev)
+    try:
+        res = wire_leg(torch, mesh.get_group("data"), dev, seed, staged=True)
+    finally:
+        tdist.destroy_process_group()
+    torch.cuda.empty_cache()
+    emit({"phase": "mesh", "leg": "wire", "group": "nccl_1x1", "card": smi,
+          **res})
+
+
 def mesh_worker(args) -> None:
-    """One rank of ``mesh_gloo2`` (``--mesh-rank``): the graph from
-    ``--mesh-data``, a 1 x 2 gloo mesh on ``--mesh-device``, the stats
-    of the file's queries; the tables to ``--mesh-out`` and one JSON
-    line with the stage seconds, edge bytes and collectives.  The hop
-    bound comes with the graph."""
+    """One rank of a two-process gloo mesh (``--mesh-rank``) on
+    ``--mesh-device``, the graph, queries and hop bound from
+    ``--mesh-data``.  ``--mesh-leg gloo2``: a 1 x 2 mesh, the stats of
+    the queries; the tables to ``--mesh-out`` and one JSON line with the
+    stage seconds, edge bytes and collectives.  ``--mesh-leg split2``: a
+    2 x 1 mesh, ``enumerate_batch`` in ``MESH_ENUM_LEGS`` on one default
+    engine, each leg's launches counted from 0 just before it; the
+    gathered outputs' summaries to ``--mesh-out`` and one JSON line with
+    the row's share and collectives a leg, then the ``wire`` leg over
+    the two ranks."""
+    import pickle
     import numpy as np
     import torch
     import torch.distributed as tdist
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.core as tc
-    from repro_torch import compat
+    from repro_torch import compat, kernels
     from repro_torch.distributed import DistributedPathEnum
 
+    split = args.mesh_leg == "split2"
     t0 = time.perf_counter()
     dev = torch.device(args.mesh_device)
-    mesh = compat.make_mesh((1, MESH_WORKERS), ("data", "model"), device=dev,
+    shape = (MESH_WORKERS, 1) if split else (1, MESH_WORKERS)
+    mesh = compat.make_mesh(shape, ("data", "model"), device=dev,
                             backend="gloo", init_method=args.mesh_init,
                             rank=args.mesh_rank)
     init_s = time.perf_counter() - t0
@@ -2163,40 +2430,78 @@ def mesh_worker(args) -> None:
         torch.cuda.synchronize()
         shard_s = time.perf_counter() - t0
         torch.cuda.reset_peak_memory_stats(dev)
-        t0 = time.perf_counter()
-        qp, qsx, tot, (ds, dt) = dpe.query_batch_stats(qs)
-        stats_s = time.perf_counter() - t0
-        np.savez(args.mesh_out % args.mesh_rank, q_prefix=qp, q_suffix=qsx,
-                 totals=tot, ds=ds, dt=dt)
-        emit({"rank": args.mesh_rank, "backend": dpe.model.backend,
-              "wire": dpe.model.kind, "init_s": init_s, "load_s": load_s,
-              "shard_s": shard_s, **dpe.last_timing, "stats_s": stats_s,
-              "edge_bytes_per_rank": dpe.edge_bytes(),
-              "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-              **dpe.comm_counts()})
+        head = {"rank": args.mesh_rank, "backend": dpe.model.backend,
+                "wire": dpe.model.kind, "init_s": init_s, "load_s": load_s,
+                "shard_s": shard_s,
+                "edge_bytes_per_rank": dpe.edge_bytes()}
+        if not split:
+            t0 = time.perf_counter()
+            qp, qsx, tot, (ds, dt) = dpe.query_batch_stats(qs)
+            stats_s = time.perf_counter() - t0
+            np.savez(args.mesh_out % args.mesh_rank, q_prefix=qp,
+                     q_suffix=qsx, totals=tot, ds=ds, dt=dt)
+            emit({**head, **dpe.last_timing, "stats_s": stats_s,
+                  "max_memory_allocated":
+                      torch.cuda.max_memory_allocated(dev),
+                  **dpe.comm_counts()})
+            return
+        engine = tc.BatchPathEnum(device=dev)
+        legs, summaries = [], {}
+        for leg, kw in MESH_ENUM_LEGS:
+            torch.cuda.reset_peak_memory_stats(dev)
+            comm0 = dpe.comm_counts()
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = dpe.enumerate_batch(qs, engine=engine, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            comm1 = dpe.comm_counts()
+            legs.append({"enumerate": leg, "wall_s": wall,
+                         **dpe.last_split,
+                         **{key: comm1[key] - comm0[key] for key in comm1},
+                         "launches": {n: launches[n] for n in
+                                      PATHENUM_KERNELS},
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(dev)})
+            summaries[leg] = output_summary(out)
+        with open(args.mesh_out % args.mesh_rank, "wb") as fh:
+            pickle.dump(summaries, fh)
+        del engine, out
+        torch.cuda.empty_cache()
+        wire = wire_leg(torch, mesh.get_group("data"), dev, args.seed,
+                        staged=False)
+        emit({**head, "legs": legs, "wire_leg": wire})
     finally:
         tdist.destroy_process_group()
 
 
-def mesh_phase(torch, np, tc, est, kernels, g, picks, batch_runs, dev):
+def mesh_phase(torch, np, tc, est, kernels, g, picks, batch_runs, dev, seed,
+               smi):
     """The mesh engine on the large graph: ``mesh_1`` (its launches
-    counted from 0 and returned), its checks, ``mesh_gloo2``."""
+    counted from 0 and returned), its checks, ``mesh_gloo2``,
+    ``mesh_split2`` (each rank's K5 launches returned) and ``wire``."""
     import tempfile
     from repro_torch import compat
     from repro_torch import distributed as dist_mod
     qs = np.array([(s, t) for s, t, _ in picks], np.int64)
     t_phase = time.perf_counter()
-    stats, outs, launches, comm = mesh_one(torch, tc, kernels, compat,
-                                           dist_mod, g, qs, dev)
+    stats, outs, walls, launches, comm = mesh_one(torch, tc, kernels, compat,
+                                                  dist_mod, g, qs, dev)
     cmp = check_mesh_one(torch, np, tc, est, g, picks, stats, outs,
                          batch_runs, dev)
     emit({"phase": "mesh", "leg": "mesh_1_check", "ok": True, **cmp,
           "all_reduce_calls_per_stats": comm["all_reduce_calls"]})
     with tempfile.TemporaryDirectory() as tmp:
-        mesh_gloo2(np, compat, g, qs, stats, dev, tmp)
+        data, write_s = write_mesh_data(np, g, qs, tmp)
+        mesh_gloo2(np, compat, data, write_s, qs, stats, dev, tmp, seed)
+        split_k5 = mesh_split2(compat, data, qs, outs, walls, dev, tmp, seed,
+                               smi)
+    wire_one(torch, compat, dev, seed, smi)
     emit({"phase": "mesh", "leg": "done",
           "seconds": time.perf_counter() - t_phase})
-    return launches
+    return launches, split_k5
 
 
 # ---------------------------------------------------------------------------
@@ -3786,14 +4091,16 @@ def main() -> None:
     ap.add_argument("--queries", type=int, default=3)
     ap.add_argument("--batch", type=int, default=16,
                     help="queries of the batch phase's fused leg")
-    # one rank of the mesh phase's two-process gloo mesh (the script
-    # starts these itself)
+    # one rank of one of the mesh phase's two-process gloo meshes (the
+    # script starts these itself)
     ap.add_argument("--mesh-rank", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-init", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-data", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-out", help=argparse.SUPPRESS)
     ap.add_argument("--mesh-device", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-leg", choices=("gloo2", "split2"),
+                    default="gloo2", help=argparse.SUPPRESS)
     # one cell of the shard phase's dry run
     ap.add_argument("--dryrun-cell", help=argparse.SUPPRESS)
     ap.add_argument("--dryrun-out", help=argparse.SUPPRESS)
@@ -3936,14 +4243,19 @@ def main() -> None:
           "seconds": time.perf_counter() - t_start})
 
     # the mesh engine: mesh_1's counts from 0, read right after it
-    mesh_launches = mesh_phase(torch, np, tc, est, kernels, g, picks,
-                               batch_runs, dev)
+    mesh_launches, split_k5 = mesh_phase(torch, np, tc, est, kernels, g,
+                                         picks, batch_runs, dev, args.seed,
+                                         smi)
     check(mesh_launches["frontier_fused_masks"] > 0,
           "frontier_fused_masks never launched in the mesh phase")
+    for r, n in enumerate(split_k5):
+        check(n > 0, f"frontier_fused_masks never launched on rank {r} of "
+                     f"mesh_split2")
     for name in MESH_KERNELS_OFF:
         check(mesh_launches[name] == 0, f"{name} launched in the mesh phase")
     emit({"phase": "mesh_check", "ok": True,
           "launches": {n: mesh_launches[n] for n in PATHENUM_KERNELS},
+          "mesh_split2_k5_launches": split_k5,
           "seconds": time.perf_counter() - t_start})
     del full, lone
     del large_runs, small_runs, batch_runs, index_of, largest, picks, shared

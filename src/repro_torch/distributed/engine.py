@@ -22,14 +22,22 @@ all-reduces the stacked ``(Q_local, n)`` vectors once per level: the
 per-query ``(m_local,)`` temporaries bound the device memory, not
 ``Q_local * m_local``.
 
-``repro`` runs one host engine over the whole batch after the mesh pass.
-Here every rank runs its engine over the whole batch and returns the
-same ``BatchOutput``, so dedup, the index LRU, sharing groups and fused
-counters equal ``repro``'s; splitting the enumeration itself over the
-``data`` ranks is later work (ROADMAP.md).
+``repro`` is one controller over the mesh: it shards the distance pass
+over ``data`` and then runs one host engine over the batch, each query's
+expansion on its data shard.  The port is one process per rank, so
+``enumerate_batch`` splits the batch itself: query (s, t) belongs to
+data row ``s mod D``, which runs the mesh BFS for its own keys and its
+batch engine over its own queries (with no walk-count DP and no gather
+of distances), and the rows' items and counters are gathered over
+``data`` so that every rank returns the same ``BatchOutput``.  The rule
+keeps a key's duplicates, each shared-s group and a key's later batches
+on one row, so dedup, sharing groups and the index LRU count what
+``repro``'s one engine counts.
 """
 from __future__ import annotations
 
+import dataclasses
+import pickle
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -37,7 +45,8 @@ import numpy as np
 import torch
 from torch.distributed.device_mesh import DeviceMesh
 
-from ..core.batch import DEFAULT_GRAPH_ID, BatchOutput, BatchPathEnum
+from ..core.batch import (DEFAULT_GRAPH_ID, BatchOutput, BatchPathEnum,
+                          BatchTiming, CacheStats)
 from ..core.device import resolve_device
 from ..core.graph import Graph
 from .wire import ReduceOp, Wire
@@ -190,6 +199,9 @@ class DistributedPathEnum:
         self._dp = make_distributed_walk_dp(mesh, graph.n, k, self.model)
         # seconds of the last query_batch_stats call by stage
         self.last_timing: Dict[str, float] = {}
+        # this row's share of the last enumerate_batch call: queries and
+        # keys owned, stage seconds, its BatchTiming, the rows' payloads
+        self.last_split: Dict[str, object] = {}
 
     def edge_bytes(self) -> int:
         """Device bytes of this rank's edge slice."""
@@ -237,20 +249,39 @@ class DistributedPathEnum:
                         engine: Optional[BatchPathEnum] = None,
                         graph_id: str = DEFAULT_GRAPH_ID,
                         sharing: Optional[str] = None) -> BatchOutput:
-        """Batch entry point: mesh distances, then the batch engine.
+        """Batch entry point: each ``data`` row enumerates the queries it
+        owns, then the rows' results are gathered.
 
-        ``queries`` is (Q, 2) of (s, t) at this instance's k.  The list is
-        padded to a multiple of the ``data`` dim with the first query
-        repeated, the mesh computes every query's distances, and the
-        ``(Q, n)`` matrices feed ``BatchPathEnum.run`` as precomputed
-        distances keyed ``(graph_id, s, t, k, 0, graph.version)``, so the
-        engine skips its own BFS and goes straight to index assembly,
-        planning and enumeration, with its dedup and index LRU still
-        applying across the batch.  ``graph_id`` names the tenant (it
-        keys the hand-off and the engine's LRU); ``count_only``,
-        ``first_n`` and ``sharing`` go to the engine.  The default
-        engine is ``BatchPathEnum()`` on this instance's device (its
-        ``backend="device"``).  Every rank returns the same output.
+        ``queries`` is (Q, 2) of (s, t) at this instance's k.  Query (s,
+        t) belongs to data row ``s mod D`` (D the ``data`` dim's size), so
+        a key's duplicates, every query of a shared-s group and the same
+        key in later batches all land on one row.  The row runs the two
+        mesh BFS (``make_distributed_bfs``, MIN over ``model``) for its
+        distinct keys only, and ``BatchPathEnum.run`` over its queries in
+        input order, duplicates kept, with those distances keyed
+        ``(graph_id, s, t, k, 0, graph.version)``: the engine skips its
+        own BFS and goes straight to index assembly, planning and
+        enumeration under its dedup and index LRU.  A row that owns no
+        query skips the BFS on all its ranks together.  ``graph_id``
+        names the tenant (it keys the hand-off and the engine's LRU);
+        ``count_only``, ``first_n`` and ``sharing`` go to the engine.
+        The default engine is ``BatchPathEnum()`` on this instance's
+        device (its ``backend="device"``).
+
+        The rows' items and counters come back over the ``data`` group
+        through ``Wire`` (the lengths, then the padded bytes), and every
+        rank returns the same ``BatchOutput``, items in input order.
+        Items equal one engine's over the whole batch; plans come without
+        their ``dp`` tables (two (k+1, n) float64 arrays a plan, which
+        nothing reads after planning).  ``cache_stats``,
+        ``distinct_queries``, ``sharing_groups``, ``shared_queries``,
+        ``fused_queries`` and ``fused_dispatches`` are the rows' sums;
+        below the LRU's capacity all but the fused ones equal one
+        engine's.  Fused flags and counters are each row's own K5
+        launch: a row with one eligible query runs it solo.  Each stage
+        of ``timing`` is the slowest row's (distance seconds include the
+        mesh BFS), ``total_seconds`` the call's wall on this rank.  The
+        row's own split stays in ``last_split``.
         """
         engine = engine or BatchPathEnum(device=self.device)
         q = np.asarray(queries, np.int64).reshape(-1, 2)
@@ -258,16 +289,95 @@ class DistributedPathEnum:
         if q.shape[0] == 0:
             return engine.run(self.graph, [], graph_id=graph_id,
                               sharing=sharing)
-        pad = (-q.shape[0]) % self.data.size
-        padded = np.concatenate([q, np.repeat(q[:1], pad, axis=0)]) \
-            if pad else q
-        _, _, _, (ds, dt) = self.query_batch_stats(padded)
-        pre = {(graph_id, s, t, k, 0, self.graph.version):
-               (ds[i].astype(np.int32), dt[i].astype(np.int32))
-               for i, (s, t, k) in enumerate(triples)}
-        return engine.run(self.graph, triples, count_only=count_only,
-                          first_n=first_n, graph_id=graph_id,
-                          sharing=sharing, _precomputed_distances=pre)
+        t_call = time.perf_counter()
+        rows = self.data.size
+        mine = [tr for tr in triples if tr[0] % rows == self.data.rank]
+        keys = list(dict.fromkeys((graph_id, s, t, k, 0, self.graph.version)
+                                  for s, t, k in mine))
+        pre: Dict[tuple, Tuple[np.ndarray, np.ndarray]] = {}
+        t0 = time.perf_counter()
+        if keys:
+            srcs, tgts = [key[1] for key in keys], [key[2] for key in keys]
+            ds = self._bfs(self.esrc, self.edst, self.valid, srcs, tgts)
+            dt = self._bfs(self.edst, self.esrc, self.valid, tgts, srcs)
+            ds, dt = ds.cpu().numpy(), dt.cpu().numpy()
+            pre = {key: (ds[i].copy(), dt[i].copy())
+                   for i, key in enumerate(keys)}
+        bfs_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out = engine.run(self.graph, mine, count_only=count_only,
+                         first_n=first_n, graph_id=graph_id, sharing=sharing,
+                         _precomputed_distances=pre)
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        row = _row_summary(out, bfs_s)
+        parts = self._gather_rows(pickle.dumps(row))
+        # the payloads are this mesh's own ranks' pickles
+        got = [row if r == self.data.rank else pickle.loads(b)
+               for r, b in enumerate(parts)]
+        gather_s = time.perf_counter() - t0
+        self.last_split = {
+            "owned_queries": len(mine), "owned_keys": len(keys),
+            "bfs_s": bfs_s, "run_s": run_s, "gather_s": gather_s,
+            "row_timing": dataclasses.asdict(out.timing),
+            "payload_bytes": [len(b) for b in parts]}
+        return _merge_rows(triples, rows, got, graph_id, t_call)
+
+    def _gather_rows(self, payload: bytes) -> List[bytes]:
+        """Every data row's ``payload``, in row order: one all-gather of
+        the lengths, one of the bytes padded to the longest."""
+        dev = self.device if self.data.kind == "device" else torch.device(
+            "cpu")
+        lens = self.data.all_gather(torch.tensor(
+            [len(payload)], dtype=torch.int64, device=dev)).tolist()
+        buf = torch.zeros(max(lens), dtype=torch.uint8)
+        buf[:len(payload)] = torch.frombuffer(bytearray(payload),
+                                              dtype=torch.uint8)
+        every = self.data.all_gather(buf.to(dev)).cpu().numpy().reshape(
+            len(lens), -1)
+        return [every[r, :n].tobytes() for r, n in enumerate(lens)]
+
+
+def _row_summary(out: BatchOutput, bfs_s: float) -> dict:
+    """What a data row sends: its items (plans without their ``dp``
+    tables), counters and stage seconds, the mesh BFS counted as
+    distance seconds."""
+    items = [dataclasses.replace(it, plan=dataclasses.replace(it.plan,
+                                                              dp=None))
+             for it in out.items]
+    tm = out.timing
+    return {"items": items,
+            "cache_stats": dataclasses.astuple(out.cache_stats),
+            "counters": [out.distinct_queries, out.sharing_groups,
+                         out.shared_queries, out.fused_queries,
+                         out.fused_dispatches],
+            "stages": [tm.distance_seconds + bfs_s, tm.index_seconds,
+                       tm.optimize_seconds, tm.enumerate_seconds]}
+
+
+def _merge_rows(triples: Sequence[Tuple[int, int, int]], rows: int,
+                got: Sequence[dict], graph_id: str,
+                t_call: float) -> BatchOutput:
+    """One ``BatchOutput`` from every row's summary: items back in input
+    order (row r's are the queries with s mod rows == r, in order),
+    counters summed, each stage the slowest row's."""
+    items: List[object] = [None] * len(triples)
+    taken = [iter(g["items"]) for g in got]
+    for pos, (s, _t, _k) in enumerate(triples):
+        items[pos] = next(taken[s % rows])
+    counters = np.sum([g["counters"] for g in got], axis=0).tolist()
+    stages = np.max([g["stages"] for g in got], axis=0).tolist()
+    ended = time.perf_counter()
+    timing = BatchTiming(*stages, total_seconds=ended - t_call,
+                         started_at=t_call, ended_at=ended)
+    return BatchOutput(
+        items=items,  # type: ignore[arg-type]
+        timing=timing,
+        cache_stats=CacheStats(*np.sum([g["cache_stats"] for g in got],
+                                       axis=0).tolist()),
+        distinct_queries=counters[0], graph_id=graph_id,
+        sharing_groups=counters[1], shared_queries=counters[2],
+        fused_queries=counters[3], fused_dispatches=counters[4])
 
 
 class DistributedTenantRouter:

@@ -1171,7 +1171,8 @@ def test_cuda_constrained_query_equals_cpu(cuda):
 # two processes sharing the one card (tests/torch_mesh_parity.py, ``cuda``)
 # ---------------------------------------------------------------------------
 
-MESH_RUNS = {"nccl_1x1": (1, 1, "nccl"), "gloo_1x2": (1, 2, "gloo")}
+MESH_RUNS = {"nccl_1x1": (1, 1, "nccl"), "gloo_1x2": (1, 2, "gloo"),
+             "gloo_2x1": (2, 1, "gloo")}
 
 
 @pytest.fixture(scope="module")
@@ -1268,6 +1269,48 @@ def test_cuda_mesh_gloo_two_ranks_equal_nccl(cuda_mesh_runs):
         for key in ("ds", "dt", "qp", "qs", "tot"):
             assert np.array_equal(got["stats"][key], one["stats"][key]), key
         assert got["enum"] == one["enum"]
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_gloo_two_rows_equal_nccl(cuda_mesh_runs):
+    """Two processes on the one card as a 2 x 1 gloo mesh: each data row
+    enumerates the queries whose source it owns (s mod 2) on its own
+    default engine, and after the gather both ranks return the 1 x 1
+    mesh's items (fused flags apart: they describe each row's own K5
+    launch) and its non-fused counters and cache stats."""
+    one = cuda_mesh_runs["nccl_1x1"][0]["enum"]
+    rows = cuda_mesh_runs["gloo_2x1"]
+    assert sum(got["owned_queries"] for got in rows) == len(one["items"])
+    drop = ("fused_queries", "fused_dispatches")
+    for got in rows:
+        assert got["wire"] == "host" and got["edge_device"].startswith("cuda")
+        for key in ("ds", "dt", "qp", "qs", "tot"):
+            assert np.array_equal(
+                got["stats"][key], cuda_mesh_runs["nccl_1x1"][0]["stats"][key])
+        b = got["enum"]
+        assert [{**i, "flags": i["flags"][:3]} for i in b["items"]] == \
+            [{**i, "flags": i["flags"][:3]} for i in one["items"]]
+        assert b["cache_stats"] == one["cache_stats"]
+        assert {k: v for k, v in b["counters"].items() if k not in drop} == \
+            {k: v for k, v in one["counters"].items() if k not in drop}
+        assert b == rows[0]["enum"]
+
+
+@pytest.mark.cuda
+def test_cuda_compressed_sums_exact(cuda_mesh_runs):
+    """``compressed_all_reduce`` on CUDA tensors over every mesh (NCCL on
+    the card, gloo through the host): each rank's sum bit-identical to
+    the int64 sum of every rank's quantized values, rebuilt on the CPU
+    from the seeds (``mp.exact_compressed_sum``)."""
+    import torch_mesh_parity as mp
+    for name, runs in cuda_mesh_runs.items():
+        want = mp.exact_compressed_sum(
+            torch, [mp.rank_tree(*got["coords"]) for got in runs])
+        for got in runs:
+            assert got["compressed_device"].startswith("cuda")
+            assert got["compressed"]["w"].tobytes() == want["w"].tobytes()
+            assert got["compressed"]["b"][0].tobytes() == \
+                want["b"][0].tobytes()
 
 
 # the five families past dense: each reduced config (and a tailed hybrid)

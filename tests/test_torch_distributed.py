@@ -2,16 +2,20 @@
 
 One module-wide run starts, all at once: ``repro``'s scenarios on a
 2 x 2 host mesh (a subprocess with four forced XLA CPU devices), the
-port's on a 2 x 2 gloo mesh (four ranks) and on a 1 x 1 gloo mesh (one
-rank, the shape of the card's main leg); tests/torch_mesh_parity.py
-holds the scenarios.  Each port rank runs one torch thread.
+port's on a 2 x 2 gloo mesh (four ranks), on a 1 x 1 gloo mesh (one
+rank, the shape of the card's main leg) and on a 3 x 1 gloo mesh (three
+data rows: ``enumerate_batch`` gives query (s, t) to row s mod 3, so
+some calls leave a row with no query); tests/torch_mesh_parity.py holds
+the scenarios.  Each port rank runs one torch thread.  Every port mesh
+is held to ``repro``'s one 2 x 2 run.
 
 Tolerances: distances are integers and must be equal; the walk-count
 tables are float32 integers below 2^24, so every sum is exact in any
 order and they must be equal too; enumeration items (counts, paths in
 order, lengths, ``EnumStats``, plans, cache/dedup/shared/fused flags)
 and every ``BatchOutput`` counter must be equal; the compressed sums
-are integers times a shared scale and must be bit-identical.  The
+are integers times a shared scale and must be bit-identical, and the
+16-bit lanes must decode to the int64 sums exactly.  The
 compressed gradient is held to the exact one within ``repro``'s own
 bounds (tests/test_distributed.py): loss within 1e-4, every gradient
 within 5% of its largest entry (the int8 grid's step is 1/127 of it),
@@ -40,7 +44,7 @@ import torch_mesh_parity as mp
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE.parent / "src"
-MESHES = {"2x2": (2, 2), "1x1": (1, 1)}
+MESHES = {"2x2": (2, 2), "1x1": (1, 1), "3x1": (3, 1)}
 TIMEOUT = 240
 
 
@@ -220,7 +224,7 @@ def test_collectives_once_per_level(runs, mesh):
     all-gathers over ``data``; each rank holds its share of the padded
     edge list."""
     rows, cols = MESHES[mesh]
-    n, q_local = 60, 8 // rows
+    n, q_local = 60, -(-8 // rows)      # the batch padded to the rows
     g = tc.erdos_renyi(60, 4.0, seed=5)
     for got in runs[mesh]:
         comm = got["comm"]
@@ -233,10 +237,54 @@ def test_collectives_once_per_level(runs, mesh):
 
 
 def test_ranks_return_the_same_output(runs):
-    first = runs["2x2"][0]
-    for other in runs["2x2"][1:]:
-        for key in ("enum", "enum_default", "router"):
-            assert other[key] == first[key], key
+    for name, (rows, cols) in MESHES.items():
+        first = runs[name][0]
+        assert len(runs[name]) == rows * cols
+        for other in runs[name][1:]:
+            for key in ("enum", "enum_default", "router"):
+                assert other[key] == first[key], (name, key)
+
+
+def test_each_row_runs_only_its_own_queries(runs, mesh):
+    """Every ``engine.run`` call of a rank gets the queries of the batch
+    whose source its data row owns (s mod rows), in input order with
+    duplicates, and distances for exactly their distinct pairs; the 1 x
+    1 mesh's calls are the whole batches.  On 3 x 1 some non-empty call
+    leaves a row with nothing."""
+    rows, _cols = MESHES[mesh]
+    whole = runs["1x1"][0]["engine_runs"]
+    assert len(whole) == len(mp.enum_calls(mp.stats_queries(60))) + 4
+    idle = 0
+    for got in runs[mesh]:
+        d, _c = got["coords"]
+        assert len(got["engine_runs"]) == len(whole)
+        for mine, full in zip(got["engine_runs"], whole):
+            want = [q for q in full["queries"] if q[0] % rows == d]
+            assert mine["queries"] == want
+            assert mine["distance_pairs"] == sorted({(s, t)
+                                                     for s, t, _k in want})
+            idle += bool(full["queries"]) and not want
+    assert (idle > 0) == (mesh == "3x1")
+
+
+def test_enumerate_batch_gathers_no_distances(runs, mesh):
+    """A counting ``enumerate_batch`` of the same 8 queries on graphs of
+    60 and 6000 vertices: two all-gathers (the rows' payload lengths,
+    then their bytes), of the same size on both graphs within a few
+    pickled digits, far below one (n,) int32 row; all-reduces only for
+    the row's own keys' BFS, one MIN a level each way over (keys, n)
+    int32, and none for a walk-count DP."""
+    small_n, large_n = mp.ENUM_COMM_SIZES
+    for got in runs[mesh]:
+        small, large = (got["enum_comm"][n] for n in mp.ENUM_COMM_SIZES)
+        for n, c in ((small_n, small), (large_n, large)):
+            assert c["all_gather_calls"] == 2
+            levels = 2 * mp.K if c["owned_keys"] else 0
+            assert c["all_reduce_calls"] == levels
+            assert c["all_reduce_bytes"] == levels * c["owned_keys"] * n * 4
+        assert large["all_gather_bytes"] < 4 * large_n
+        assert abs(large["all_gather_bytes"] - small["all_gather_bytes"]) \
+            <= 64
 
 
 @pytest.mark.parametrize("shards", [1, 2, 3, 4, 7])
@@ -266,3 +314,87 @@ def test_quantize_bit_identical(seed):
                                        torch.from_numpy(r))
     for a, b in zip(want, got):
         assert b.numpy().tobytes() == np.asarray(a).tobytes()
+
+
+def test_compressed_wire_bytes(runs, mesh):
+    """One ``compressed_all_reduce`` of ``mp.rank_tree`` (leaves of 35 and
+    3 elements): per leaf a 4-byte MAX for the scale and 4 ceil(numel /
+    2) bytes of 16-bit lanes, nothing gathered."""
+    numels = (35, 3)
+    for got in runs[mesh]:
+        for name in ("data", "world"):
+            c = got["wire_counts"][name]
+            assert c["all_reduce_calls"] == 2 * len(numels)
+            assert c["all_reduce_bytes"] == sum(4 * -(-n // 2) + 4
+                                                for n in numels) == 88
+            assert c["all_gather_calls"] == c["all_gather_bytes"] == 0
+
+
+def _lane_rows(case):
+    """``(R, q)``: R ranks' int values in [-127, 127] for one leaf."""
+    rng = np.random.default_rng(3)
+    if case.startswith("corner"):
+        lo, hi = ((-127, -127), (-127, 127), (127, -127),
+                  (127, 127))[int(case[-1])]
+        return 257, np.tile(np.array([lo, hi, lo], np.int64), (257, 1))
+    if case == "random_odd":
+        return 257, rng.integers(-127, 128, (257, 1001))
+    if case == "one_element":
+        return 257, rng.choice([-127, 127], (257, 1))
+    return 3, rng.integers(-127, 128, (3, 20))
+
+
+@pytest.mark.parametrize("case", ["corner0", "corner1", "corner2", "corner3",
+                                  "random_odd", "one_element", "three_ranks"])
+def test_lanes_decode_to_int64_sums(case):
+    """``pack_lanes`` on each rank, the words summed in an order that
+    keeps every partial sum inside int32 (checked in int64, forwards and
+    backwards), ``unpack_lanes`` equal to the int64 sums of the values;
+    at R = 257 the corners are the extremes of both lanes."""
+    R, q = _lane_rows(case)
+    words = np.stack([tcomp.pack_lanes(torch.from_numpy(row)).numpy()
+                      for row in q]).astype(np.int64)
+    assert words.shape == (R, -(-q.shape[1] // 2))
+    assert words.min() >= -8_323_072 and words.max() <= 8_323_326
+    for order in (words, words[::-1]):
+        partial = np.cumsum(order, axis=0)
+        assert np.abs(partial).max() < 2 ** 31
+    total = torch.from_numpy(words.sum(0).astype(np.int32))
+    got = tcomp.unpack_lanes(total, q.shape[1], R)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), q.sum(0))
+
+
+class _SameTreeOnEveryRank:
+    """A ``Wire`` stand-in for ``size`` ranks that hold the same tree:
+    MAX returns the value, SUM multiplies it by the ranks in int64 and
+    checks that the sum fits int32 before handing it back as int32."""
+
+    def __init__(self, size):
+        self.size = size
+
+    def all_reduce(self, x, op):
+        if op == tengine.ReduceOp.MAX:
+            return x.clone()
+        total = x.to(torch.int64) * self.size
+        assert int(total.abs().max()) < 2 ** 31
+        return total.to(x.dtype)
+
+
+def test_compressed_all_reduce_at_257_ranks_and_not_258():
+    """257 ranks of one tree whose values reach both ends of the grid (an
+    odd leaf and a one-element leaf) sum to the definition's result bit
+    for bit; 258 ranks raise before any collective."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal(11).astype(np.float32)
+    w[:4] = [3.0, -3.0, 3.0, -3.0]
+    tree = {"w": w, "b": [np.array([-2.5], np.float32)]}
+    got = tcomp.compressed_all_reduce(
+        {"w": torch.from_numpy(w), "b": [torch.from_numpy(tree["b"][0])]},
+        None, wire=_SameTreeOnEveryRank(257))
+    want = mp.exact_compressed_sum(torch, [tree] * 257)
+    assert got["w"].numpy().tobytes() == want["w"].tobytes()
+    assert got["b"][0].numpy().tobytes() == want["b"][0].tobytes()
+    with pytest.raises(ValueError, match="257"):
+        tcomp.compressed_all_reduce({"w": torch.ones(3)}, None,
+                                    wire=_SameTreeOnEveryRank(258))

@@ -7,7 +7,7 @@ JAX device and no process group:
 * ``python tests/torch_mesh_parity.py repro OUT`` runs ``repro``'s
   ``DistributedPathEnum``, ``DistributedTenantRouter`` and
   ``compressed_psum_tree`` on a 2 x 2 host mesh (four forced CPU
-  devices) and, for the compressed sums, on a 1 x 1 mesh;
+  devices) and, for the compressed sums, on 1 x 1 and 3 x 1 meshes;
 * ``python tests/torch_mesh_parity.py port ROWS COLS RANK INIT OUT`` is
   one rank of the port's ``ROWS x COLS`` gloo mesh on the CPU (one
   torch thread), the process group initialised at ``INIT``;
@@ -136,16 +136,27 @@ def summarize_output(o):
                               fused_dispatches=o.fused_dispatches))
 
 
-def run_scenarios(core, Router, make_dpe, make_engine, default_run):
+def padded(qs, rows):
+    """``qs`` padded with its first query to a multiple of ``rows``, the
+    split ``query_batch_stats`` asks for."""
+    return qs + qs[:1] * ((-len(qs)) % rows)
+
+
+def run_scenarios(core, Router, make_dpe, make_engine, default_run,
+                  rows=1, entries=None):
     """The engine and router scenarios on one package: ``make_dpe(g)``
     builds its ``DistributedPathEnum``, ``make_engine()`` a host-backend
     ``BatchPathEnum``, ``default_run(dpe, qs)`` the enumeration on the
-    package's default engine."""
+    package's default engine.  The stats batch is padded to a multiple
+    of the ``rows`` data rows and cut back; ``entries(engine, gid)``
+    counts a tenant's LRU entries (by default the engine's own)."""
+    entries = entries or (lambda engine, gid: engine.cache.tenant_len(gid))
     out = {}
     g = core.erdos_renyi(60, 4.0, seed=5)
     dpe = make_dpe(g)
     qs = stats_queries(g.n)
-    qp, qsx, tot, (ds, dt) = dpe.query_batch_stats(np.array(qs))
+    stats = dpe.query_batch_stats(np.array(padded(qs, rows)))
+    qp, qsx, tot, ds, dt = (x[:len(qs)] for x in (*stats[:3], *stats[3]))
     out["stats"] = dict(qp=qp, qs=qsx, tot=tot, ds=ds, dt=dt)
     engine = make_engine()
     out["enum"] = [summarize_output(dpe.enumerate_batch(
@@ -167,8 +178,8 @@ def run_scenarios(core, Router, make_dpe, make_engine, default_run):
                          outputs={gid: summarize_output(o)
                                   for gid, o in outputs.items()}))
     out["router"] = dict(
-        runs=runs, entries=[shared_engine.cache.tenant_len("a"),
-                            shared_engine.cache.tenant_len("b")])
+        runs=runs, entries=[entries(shared_engine, "a"),
+                            entries(shared_engine, "b")])
     try:
         router.enumerate([("ghost", 0, 1)])
         out["router"]["unknown"] = None
@@ -200,7 +211,7 @@ def repro_side(path):
 
     # compressed sums per mesh shape: over "data", and over the whole mesh
     res["compressed"] = {}
-    for rows, cols in ((2, 2), (1, 1)):
+    for rows, cols in ((2, 2), (1, 1), (3, 1)):
         m = Mesh(np.array(jax.devices()[:rows * cols]).reshape(rows, cols),
                  ("data", "model"))
         trees = [[rank_tree(d, c) for c in range(cols)] for d in range(rows)]
@@ -237,7 +248,8 @@ def lm_grad_case(torch, dist, make_compressed_grad_fn):
     """``repro``'s own case (tests/test_distributed.py): the compressed
     gradient of ``make_loss_fn`` on a 1-layer dense LM (d 32, vocab 64)
     over 8 sequences of 16 tokens split across the ranks, against the
-    exact gradient of the whole batch."""
+    exact gradient of the whole batch (9 sequences over three ranks, so
+    that each holds as many)."""
     from repro_torch import tree as tree_mod
     from repro_torch.configs.base import ArchConfig
     from repro_torch.models import transformer
@@ -248,10 +260,10 @@ def lm_grad_case(torch, dist, make_compressed_grad_fn):
                      head_dim=16, attn_chunk=8, tie_embeddings=True)
     params = transformer.init_params(cfg, 0, device="cpu")
     loss_fn = make_loss_fn(cfg)
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, 64, (8, 16), dtype=np.int32))
     world, r = dist.get_world_size(), dist.get_rank()
-    rows = 8 // world
+    rows = -(-8 // world)          # 8 sequences, 9 over three ranks
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 64, (rows * world, 16), dtype=np.int32))
     local = toks[rows * r:rows * (r + 1)]
     loss, grads = make_compressed_grad_fn(loss_fn, dist.group.WORLD)(
         params, {"tokens": local, "labels": local})
@@ -274,31 +286,71 @@ def port_side(rows, cols, rank, init_method, path):
     import repro_torch.core as tc
     from repro_torch import compat
     from repro_torch.distributed import (DistributedPathEnum,
-                                         DistributedTenantRouter,
+                                         DistributedTenantRouter, Wire,
                                          compressed_all_reduce,
                                          make_compressed_grad_fn)
 
     mesh = compat.make_mesh((rows, cols), ("data", "model"), device="cpu",
                             init_method=init_method, rank=rank)
+    data_group = mesh.get_group("data")
     dpes = []
 
     def make_dpe(g):
         dpes.append(DistributedPathEnum(mesh, g, K, device="cpu"))
         return dpes[-1]
 
+    # every engine.run call of the host engines: the queries, and the
+    # (s, t) pairs whose distances came with them
+    engine_runs = []
+
+    def make_engine():
+        engine = tc.BatchPathEnum(device="cpu", backend="host",
+                                  chunk_size=CHUNK)
+        run = engine.run
+
+        def recorded(graph, queries, **kw):
+            pre = kw.get("_precomputed_distances") or {}
+            engine_runs.append(dict(
+                queries=[tuple(q) for q in queries],
+                distance_pairs=sorted((key[1], key[2]) for key in pre)))
+            return run(graph, queries, **kw)
+        engine.run = recorded
+        return engine
+
+    def entries(engine, gid):
+        """A tenant's LRU entries summed over the data rows."""
+        n = torch.tensor([engine.cache.tenant_len(gid)], dtype=torch.int64)
+        dist.all_reduce(n, group=data_group)
+        return int(n[0])
+
     res = run_scenarios(
-        tc, DistributedTenantRouter, make_dpe,
-        lambda: tc.BatchPathEnum(device="cpu", backend="host",
-                                 chunk_size=CHUNK),
-        lambda dpe, qs: dpe.enumerate_batch(np.array(qs), count_only=False))
+        tc, DistributedTenantRouter, make_dpe, make_engine,
+        lambda dpe, qs: dpe.enumerate_batch(np.array(qs), count_only=False),
+        rows=rows, entries=entries)
+    res["engine_runs"] = engine_runs
 
     # collectives of one query_batch_stats call, and a Q the data dim
     # cannot split
     dpe = dpes[0]
     before = dpe.comm_counts()
-    dpe.query_batch_stats(np.array(stats_queries(dpe.graph.n)))
+    dpe.query_batch_stats(np.array(padded(stats_queries(dpe.graph.n), rows)))
     after = dpe.comm_counts()
     res["comm"] = {key: after[key] - before[key] for key in after}
+
+    # collectives of one counting enumerate_batch call on graphs of two
+    # sizes over the same queries
+    res["enum_comm"] = {}
+    for n in ENUM_COMM_SIZES:
+        dpe_n = DistributedPathEnum(mesh, tc.erdos_renyi(n, 4.0, seed=5), K,
+                                    device="cpu")
+        before = dpe_n.comm_counts()
+        dpe_n.enumerate_batch(np.array(stats_queries(60)),
+                              engine=tc.BatchPathEnum(device="cpu",
+                                                      backend="host"))
+        after = dpe_n.comm_counts()
+        res["enum_comm"][n] = dict(
+            {key: after[key] - before[key] for key in after},
+            owned_keys=dpe_n.last_split["owned_keys"])
     res["edge_rows"] = int(dpe.esrc.shape[0])
     res["indivisible_raises"] = None
     if rows > 1:
@@ -316,9 +368,11 @@ def port_side(rows, cols, rank, init_method, path):
     res["compressed"] = {}
     for name, group in (("data", mesh.get_group("data")),
                         ("world", dist.group.WORLD)):
-        r = compressed_all_reduce(tt, group)
+        wire = Wire(group)
+        r = compressed_all_reduce(tt, group, wire=wire)
         res["compressed"][name] = {"w": r["w"].numpy(),
                                    "b": [r["b"][0].numpy()]}
+        res.setdefault("wire_counts", {})[name] = wire.counts()
     res["coords"] = (d, c)
 
     # the compressed gradient against the exact one over the whole batch
@@ -352,6 +406,26 @@ def port_side(rows, cols, rank, init_method, path):
     dist.destroy_process_group()
 
 
+# vertices of the two graphs whose enumerate_batch collectives are compared
+ENUM_COMM_SIZES = (60, 6000)
+
+
+def exact_compressed_sum(torch, trees):
+    """The compressed all-reduce of ``trees`` (one per rank, numpy leaves)
+    rebuilt on the CPU from its definition: the largest rank's scale,
+    each rank's values rounded onto it in [-127, 127], an int64 sum,
+    then float32 times the scale."""
+    def leaf(xs):
+        xs = [torch.from_numpy(x) for x in xs]
+        scale = torch.stack([x.abs().max() / 127.0 + 1e-12
+                             for x in xs]).max()
+        total = sum(torch.clamp(torch.round(x / scale), -127, 127).to(
+            torch.int64) for x in xs)
+        return (total.to(torch.float32) * scale).numpy()
+    return {"w": leaf([t["w"] for t in trees]),
+            "b": [leaf([t["b"][0] for t in trees])]}
+
+
 # the graph of the card's mesh runs, larger than the CPU scenarios'
 CUDA_GRAPH = dict(n=400, avg_degree=6.0, seed=11)
 CUDA_K = 5
@@ -360,13 +434,16 @@ CUDA_K = 5
 def cuda_side(rows, cols, rank, init_method, backend, path):
     """One rank of the port's mesh on the card (tests/test_torch_cuda.py):
     ``query_batch_stats`` and ``enumerate_batch`` on the default engine
-    (``backend="device"`` on the card), with K5's launches."""
+    (``backend="device"`` on the card), with K5's launches and the
+    queries this rank's row owned; then the compressed all-reduce of
+    ``rank_tree`` over every rank, on CUDA tensors."""
     import torch
     import torch.distributed as dist
 
     import repro_torch.core as tc
     from repro_torch import compat
-    from repro_torch.distributed import DistributedPathEnum
+    from repro_torch.distributed import (DistributedPathEnum,
+                                         compressed_all_reduce)
     from repro_torch.kernels import frontier_expand as fe
 
     mesh = compat.make_mesh((rows, cols), ("data", "model"), device="cuda",
@@ -380,11 +457,22 @@ def cuda_side(rows, cols, rank, init_method, backend, path):
     k5 = fe.fused_launches
     out = dpe.enumerate_batch(np.array(qs), count_only=False)
     torch.cuda.synchronize()
+    d = dist.get_rank(mesh.get_group("data"))
+    c = dist.get_rank(mesh.get_group("model"))
+    tree = rank_tree(d, c)
+    summed = compressed_all_reduce(
+        {"w": torch.from_numpy(tree["w"]).cuda(),
+         "b": [torch.from_numpy(tree["b"][0]).cuda()]}, dist.group.WORLD)
     res = dict(stats=dict(qp=qp, qs=qsx, tot=tot, ds=ds, dt=dt),
                enum=summarize_output(out), wire=dpe.model.kind,
                edge_device=str(dpe.esrc.device),
                edge_rows=int(dpe.esrc.shape[0]),
-               k5_launches=fe.fused_launches - k5)
+               k5_launches=fe.fused_launches - k5,
+               owned_queries=dpe.last_split["owned_queries"],
+               coords=(d, c),
+               compressed={"w": summed["w"].cpu().numpy(),
+                           "b": [summed["b"][0].cpu().numpy()]},
+               compressed_device=str(summed["w"].device))
     with open(path % rank, "wb") as fh:
         pickle.dump(res, fh)
     dist.destroy_process_group()
