@@ -9,6 +9,14 @@ graph; the defaults are what the numbers in PERF.md come from).
 
 Phases, one JSON line each (``{"phase": ...}``):
 
+0. ``lint``    — the port's static analysis over this checkout
+   (``repro_torch.analysis.lint_repo``, what ``python -m
+   repro_torch.analysis --strict`` runs): files, findings, suppressed
+   findings and seconds.  Any finding fails the run, so a tree that
+   breaks the port's contract (a fallback that hides a kernel, a JAX
+   import, a narrow rank cost, ...) cannot pass.  In a checkout without
+   the markdown documents that ``doc-links`` reads, that one rule is
+   skipped and the line names the missing documents (``skipped``).
 1. ``env``     — torch/CUDA versions and the seconds the kernel build took
    (every ``csrc/*.cu`` compiled by nvcc, all at once).
 2. ``kernel``  — each kernel against its plain version on the card at the
@@ -331,6 +339,34 @@ def check(cond: bool, msg: str) -> None:
 
 def emit(obj: dict) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def lint_phase() -> None:
+    """The ``lint`` phase: ``repro_torch.analysis`` over this checkout.
+    Prints each finding, then the phase's line, and fails on any finding
+    (``--strict``)."""
+    from repro_torch.analysis import ALL_PASSES, lint_repo
+    from repro_torch.analysis.passes.docs import documents
+
+    t0 = time.perf_counter()
+    # a checkout of the program alone may leave out the markdown documents;
+    # doc-links would then report their absence, not a fault of the port,
+    # so it runs only where every document it reads is present
+    missing = [d for d in documents(ROOT) if not (ROOT / d).exists()]
+    rules = [p.name for p in ALL_PASSES
+             if not (missing and p.name == "doc-links")]
+    report = lint_repo(ROOT, rules=rules)
+    seconds = time.perf_counter() - t0
+    for f in report.findings:
+        print(f.render(), flush=True)
+    emit({"phase": "lint", "files": report.files,
+          "findings": len(report.findings),
+          "suppressed": report.suppressed, "seconds": seconds,
+          "skipped": {"doc-links": missing} if missing else {}})
+    check(report.exit_code(strict=True) == 0,
+          f"the port does not lint clean: {len(report.findings)} "
+          f"finding(s) (python -m repro_torch.analysis --strict): "
+          + "; ".join(f.render() for f in report.findings[:5]))
 
 
 def time_ms(torch, fn, reps: int, warmup: int = 2, batches: int = 3
@@ -4123,6 +4159,7 @@ def main() -> None:
         dryrun_worker(args)
         return
     sys.path.insert(0, str(ROOT / "src"))
+    lint_phase()
     import numpy as np
 
     import repro_torch.core as tc

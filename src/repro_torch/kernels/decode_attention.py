@@ -148,8 +148,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"decode_attention: q {tuple(q.shape)} and the "
                          f"cache {tuple(k_cache.shape)} disagree (H must be "
                          f"a multiple of Hkv)")
-    if lengths.shape != (B,) or lengths.dtype not in (torch.int32,
-                                                       torch.int64):
+    # int64 lengths are taken as well: the launch reads an int32 copy
+    ints = (torch.int32, torch.int64)  # repro-torch-lint: disable=kernel-contract
+    if lengths.shape != (B,) or lengths.dtype not in ints:
         raise ValueError(f"decode_attention: lengths must be ({B},) int32 "
                          f"or int64, got {tuple(lengths.shape)} "
                          f"{lengths.dtype}")

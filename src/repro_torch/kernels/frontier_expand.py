@@ -411,11 +411,12 @@ def fused_member_table(begins, ends, dsts, *, k1max: int, device
     return table
 
 
-def frontier_fused_masks_table(paths: torch.Tensor, rank: torch.Tensor,
-                               tvec: torch.Tensor, depthv: torch.Tensor,
-                               table: torch.Tensor, *, max_deg: int
-                               ) -> tuple[torch.Tensor, torch.Tensor,
-                                          torch.Tensor, torch.Tensor]:
+# no CPU branch: only the kernel reads a table of device pointers, and
+# CPU callers take frontier_fused_masks, whose plain version needs none
+def frontier_fused_masks_table(  # repro-torch-lint: disable=kernel-contract
+        paths: torch.Tensor, rank: torch.Tensor, tvec: torch.Tensor,
+        depthv: torch.Tensor, table: torch.Tensor, *, max_deg: int
+        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One fused frontier hop on the card, on a member table already there:
     ``table`` (m, 5) int64 on the rows' CUDA device, as
     ``fused_member_table`` builds it (its arrays must outlive the launch).
@@ -427,9 +428,10 @@ def frontier_fused_masks_table(paths: torch.Tensor, rank: torch.Tensor,
     if not paths.is_cuda:
         raise ValueError("frontier_fused_masks_table runs on the card; "
                          "CPU tensors take frontier_fused_masks")
-    if table.dim() != 2 or table.shape[1] != 5 \
-            or table.dtype != torch.int64 or table.device != paths.device \
-            or not table.is_contiguous():
+    # the member table holds 64-bit device pointers
+    wide = table.dtype == torch.int64  # repro-torch-lint: disable=kernel-contract
+    if table.dim() != 2 or table.shape[1] != 5 or not wide \
+            or table.device != paths.device or not table.is_contiguous():
         raise ValueError(f"table must be a contiguous (m, 5) int64 tensor on "
                          f"{paths.device}")
     m = table.shape[0]

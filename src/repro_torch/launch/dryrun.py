@@ -282,8 +282,10 @@ def fake_group(world: int, rank: int = 0):
         if _FAKE["key"] != (world, rank):
             release_fake_group()
     if not dist.is_initialized():
-        dist.init_process_group("fake", store=FakeStore(), rank=rank,
-                                world_size=world)
+        # the dry run's fake group: meta tensors, no device and no mesh
+        # engine, so compat.make_mesh (a real backend) is not the place
+        dist.init_process_group(  # repro-torch-lint: disable=compat-boundary
+            "fake", store=FakeStore(), rank=rank, world_size=world)
         _FAKE["key"] = (world, rank)
     yield
 

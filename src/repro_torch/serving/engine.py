@@ -1,5 +1,5 @@
 """Batched LM serving: fixed-slot continuous batching over ``decode_step``
-(the port of ``repro.serving.engine``).
+(the port of ``repro.serving.engine``, DESIGN.md §5).
 
 B decode slots, a FIFO request queue, slot re-fill on completion,
 per-request ``max_tokens`` and EOS, and a stop at ``max_len - 1`` cached
