@@ -248,13 +248,27 @@ Phases, one JSON line each (``{"phase": ...}``):
    ``FlopCounterMode``'s FLOPs equal, the peak estimate within
    ``DRYRUN_PEAK_RATIO`` of ``max_memory_allocated``.  Then
    ``shard_check``: no K6 or K7 launch in ``shard_train``.
+18. ``examples`` — the nine examples (``repro_torch.examples``,
+   ``repro``'s ``examples/*.py`` under the same names) through their
+   ``main(["--device", "cuda"])``, what they print sent to stderr: a line
+   each with its seconds on the card, its launches and the card's name
+   and power limit.  Each must return (its own asserts hold) and launch
+   the kernels ``EXAMPLE_KERNELS`` names (none in fraud_detection and
+   train_lm, K7 in serve_batch).  The six PathEnum examples (quickstart,
+   fraud_detection, batch_serving, multi_tenant_serving, async_serving,
+   streaming_serving) must return the values of their ``--device cpu``
+   run, which calls the plain versions (``cpu_seconds``), but for those
+   ``examples.CLOCK_BOUND`` names (``excepted``: async_serving's SLO-met
+   count and micro-batches, which follow the wall clock).  Then
+   ``examples_check``.
 
 The launch counts are set to 0 just before phase 3 and read just after
 phase 5, and set to 0 again just before phase 7, phase 8, the
 ``mesh_1`` leg and, in each rank, each ``mesh_split2`` leg of phase 9,
 phase 11, phase 13, each leg of phase 15,
-phase 16 and the ``shard_train`` and ``shard_serve`` legs of phase 17,
-each read just after its phase or leg.  K5 is held against its plain
+phase 16, the ``shard_train`` and ``shard_serve`` legs of phase 17 and
+each example of phase 18, each read just after its phase, leg or
+example.  K5 is held against its plain
 version at the shape of the fused leg's largest dispatch (a ``kernel``
 line, timed through the entry the fused expand calls, on a member table
 already on the card, with ``device_ms`` beside it; ``list_entry_ms``
@@ -4119,6 +4133,104 @@ def shard_phase(torch, np, kernels, dev, seed, train_sec):
     return serve_launches
 
 
+# the examples phase: the launch counts each example must show on the
+# card (each above 0), as the wrappers reached them on the CPU; an empty
+# tuple means no kernel may launch.  ``bfs_dense`` and ``frontier_hop``
+# are K4's and K1's own entries (``minplus_spmv`` and ``frontier_masks``
+# count their launches too)
+EXAMPLE_KERNELS = {
+    "quickstart": ("bfs_dense", "counting_spmm", "frontier_hop"),
+    "fraud_detection": (),
+    "batch_serving": ("frontier_fused_masks", "frontier_deque_round"),
+    "multi_tenant_serving": ("frontier_fused_masks", "frontier_deque_round",
+                             "frontier_hop"),
+    "async_serving": ("bfs_dense", "counting_spmm", "frontier_fused_masks"),
+    "streaming_serving": ("frontier_fused_masks",),
+    "kg_completion": ("frontier_hop",),
+    "serve_batch": ("decode_attention",),
+    "train_lm": (),
+}
+
+
+def example_launch_check(name, launches) -> None:
+    """The kernels ``EXAMPLE_KERNELS`` names for ``name`` launched; none
+    at all where it names none; no attention kernel in a PathEnum
+    example or in kg_completion (training takes plain attention)."""
+    want = EXAMPLE_KERNELS[name]
+    for kernel in want:
+        check(launches[kernel] > 0,
+              f"{kernel} never launched in example {name}")
+    if not want:
+        check(not any(launches.values()),
+              f"example {name} launched {launches}")
+    if name != "serve_batch":
+        for kernel in LM_KERNELS + LM_BF16_KERNELS:
+            check(launches[kernel] == 0,
+                  f"{kernel} launched in example {name}")
+
+
+def example_summary(name, values) -> dict:
+    """A few of an LM example's returned values for its line."""
+    if name == "kg_completion":
+        return {"first": values["first"], "last": values["last"]}
+    if name == "serve_batch":
+        return {k: values[k] for k in ("requests", "tokens", "engine_steps")}
+    if name == "train_lm":
+        log = values["log"]
+        return {"params": values["params"], "steps": values["steps"],
+                "first_loss": log[0]["loss"], "last_loss": log[-1]["loss"]}
+    return {}
+
+
+def examples_phase(torch, kernels, dev, smi) -> dict:
+    """Phase 18: the nine examples (``repro_torch.examples``, ``repro``'s
+    ``examples/*.py``) through their ``main`` on ``dev``, launch counts
+    set to 0 just before each and read just after it; what they print
+    goes to stderr.  Each must return (its own asserts hold) and launch
+    the kernels ``EXAMPLE_KERNELS`` names; each PathEnum example's
+    returned values must equal its ``--device cpu`` run's, which calls
+    the plain versions, but for the values ``examples.CLOCK_BOUND``
+    names.  Returns the launches of each example."""
+    import importlib
+
+    from repro_torch import examples
+
+    seen = {}
+    t_phase = time.perf_counter()
+    for name in examples.NAMES:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        torch.cuda.empty_cache()
+        with contextlib.redirect_stdout(sys.stderr):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            values = mod.main(["--device", dev.type])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = kernels.launch_counts()
+            line = {"phase": "examples", "example": name,
+                    "seconds": seconds,
+                    "launches": {k: v for k, v in launches.items() if v}}
+            if name in examples.PATHENUM:
+                t0 = time.perf_counter()
+                plain = mod.main(["--device", "cpu"])
+                line["cpu_seconds"] = time.perf_counter() - t0
+                excepted = sorted(examples.CLOCK_BOUND.get(name, {}))
+                differ = sorted(k for k in values if k not in excepted
+                                and values[k] != plain.get(k))
+                check(set(values) == set(plain) and not differ,
+                      f"example {name} on the card differs from its "
+                      f"--device cpu run in {differ}")
+                line.update(equal_cpu=True, excepted=excepted,
+                            excepted_values={k: (values[k], plain[k])
+                                             for k in excepted})
+        emit({**line, **example_summary(name, values), "card": smi})
+        example_launch_check(name, launches)
+        seen[name] = launches
+    emit({"phase": "examples_check", "ok": True, "examples": len(seen),
+          "seconds": time.perf_counter() - t_phase})
+    return seen
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4387,6 +4499,9 @@ def main() -> None:
 
     # the LM's mesh layout: each leg's counts from 0, read right after
     shard_phase(torch, np, kernels, dev, args.seed, train_sec)
+
+    # the nine examples: each one's counts from 0, read right after it
+    examples_phase(torch, kernels, dev, smi)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
 
     where = {

@@ -87,6 +87,24 @@ class LightweightIndex:
         b = min(b, self.k)
         return self.rev_src[self.rev_begin[v]:self.rev_end[v, b]]
 
+    def level(self, i: int) -> np.ndarray:
+        """I(i) = C_i, the vertices at level i, as an int32 id array."""
+        mask = (self.dist_s <= i) & (self.dist_t <= self.k - i)
+        return np.nonzero(mask)[0].astype(np.int32)
+
+    def it_count(self, v, b: int) -> np.ndarray:
+        """|I_t(v, b)| vectorised over v (b a scalar), int64."""
+        if b < 0:
+            return np.zeros(np.shape(v), dtype=np.int64)
+        b = min(b, self.k)
+        return self.fwd_end[v, b] - self.fwd_begin[v]
+
+    def memory_bytes(self) -> int:
+        """Bytes of the host fields (the numpy arrays), as ``repro``
+        counts them; the device copies are ``DeviceIndexArrays``'s."""
+        return sum(v.nbytes for f in dataclasses.fields(self)
+                   if isinstance(v := getattr(self, f.name), np.ndarray))
+
     @property
     def num_index_edges(self) -> int:
         """Number of index edges."""

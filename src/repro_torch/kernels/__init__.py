@@ -16,10 +16,15 @@ semiring_spmm    — K3 counting SpMM and K4 min-plus SpMV (one launch
                    for a whole bounded BFS)
 
 CUDA tensors launch the kernels (built from ``csrc/`` at first use by
-``_build``); CPU tensors take the plain versions.
+``_build``); CPU tensors take the plain versions.  ``bfs_dense``,
+``counting_spmm`` and ``minplus_spmv`` are re-exported as ``repro``'s
+package does.  ``decode_attention``, ``flash_attention`` and
+``frontier_expand`` stay the submodules whose counters
+``launch_counts()`` reads; their wrappers are called through them.
 """
 from . import (decode_attention, flash_attention, frontier_expand, ops,
                semiring_spmm)
+from .semiring_spmm import bfs_dense, counting_spmm, minplus_spmv
 
 
 def launch_counts() -> dict:

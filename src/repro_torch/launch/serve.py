@@ -15,7 +15,9 @@ import time
 import numpy as np
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
+    """Serve the requests; returns what it printed, the wall time left
+    out: requests, tokens, engine steps and each request's tokens."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3p2_1b")
     ap.add_argument("--preset", default="reduced", choices=["reduced", "full"])
@@ -56,6 +58,9 @@ def main(argv: list[str] | None = None) -> None:
           f", {engine.device})")
     for uid in sorted(results):
         print(f"  req {uid}: {results[uid]}")
+    return {"requests": len(results), "tokens": toks,
+            "engine_steps": engine.steps_run,
+            "results": {uid: list(results[uid]) for uid in sorted(results)}}
 
 
 if __name__ == "__main__":

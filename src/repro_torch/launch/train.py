@@ -35,7 +35,10 @@ def build_arch(args):
     return cfg
 
 
-def main(argv: list[str] | None = None) -> None:
+def main(argv: list[str] | None = None) -> dict:
+    """Train; returns what it printed, the wall time left out: the
+    config's name, its parameter count, the steps, the straggler steps
+    and the metrics log."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="llama3p2_1b")
     ap.add_argument("--preset", default="reduced",
@@ -91,6 +94,9 @@ def main(argv: list[str] | None = None) -> None:
         with open(args.metrics_out, "w") as f:
             json.dump({"config": cfg.name, "params": n_params,
                        "log": trainer.metrics_log}, f, indent=2)
+    return {"config": cfg.name, "params": n_params, "steps": args.steps,
+            "stragglers": list(trainer.straggler_steps),
+            "log": list(trainer.metrics_log)}
 
 
 if __name__ == "__main__":

@@ -1685,3 +1685,61 @@ def test_cuda_kernel_wrappers_refuse_dtensors(cuda_shard_run):
     assert rec["flash_raises"] == "TypeError"
     assert rec["decode_raises"] == "TypeError"
     assert rec["inside_plain_raises"] == "TypeError"
+
+
+# ---------------------------------------------------------------------------
+# the examples (repro_torch.examples) on the card, and the kernels
+# package's surface
+# ---------------------------------------------------------------------------
+
+def test_launch_counts_read_every_counter_after_reexports(monkeypatch):
+    """``repro_torch.kernels`` re-exports K3's and K4's wrappers, and
+    ``launch_counts()`` still reads every counter of the kernel
+    submodules (a CPU test: no kernel runs)."""
+    import inspect
+
+    from repro_torch import kernels
+
+    assert kernels.bfs_dense is sr.bfs_dense
+    assert kernels.counting_spmm is sr.counting_spmm
+    assert kernels.minplus_spmv is sr.minplus_spmv
+    for mod in (kernels.decode_attention, kernels.flash_attention,
+                kernels.frontier_expand, kernels.ops, kernels.semiring_spmm):
+        assert inspect.ismodule(mod)
+    counters = {"frontier_masks": (fe, "launches"),
+                "frontier_hop": (fe, "hop_launches"),
+                "frontier_fused_masks": (fe, "fused_launches"),
+                "frontier_deque_round": (ops, "deque_rounds"),
+                "counting_spmm": (sr, "counting_launches"),
+                "minplus_spmv": (sr, "minplus_launches"),
+                "bfs_dense": (sr, "bfs_launches"),
+                "flash_attention": (kf, "f32_launches"),
+                "flash_attention_sm90": (kf, "wgmma_launches"),
+                "decode_attention": (kd, "launches")}
+    for i, (mod, attr) in enumerate(counters.values()):
+        monkeypatch.setattr(mod, attr, 100 + i)
+    assert kernels.launch_counts() == {
+        name: 100 + i for i, name in enumerate(counters)}
+    kernels.reset_launch_counts()
+    assert kernels.launch_counts() == dict.fromkeys(counters, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quickstart", "fraud_detection",
+                                  "batch_serving", "multi_tenant_serving",
+                                  "async_serving", "streaming_serving"])
+def test_cuda_example_equals_cpu(cuda, name):
+    """A PathEnum example on the card returns the values of its
+    ``--device cpu`` run (the plain versions), but for the wall-clock
+    values ``examples.CLOCK_BOUND`` names."""
+    import importlib
+
+    from repro_torch import examples
+
+    assert name in examples.PATHENUM
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    got = mod.main(["--device", "cuda"])
+    want = mod.main(["--device", "cpu"])
+    assert set(got) == set(want)
+    for key in set(got) - set(examples.CLOCK_BOUND.get(name, {})):
+        assert got[key] == want[key], key

@@ -95,3 +95,49 @@ def test_from_numpy_and_device_arrays():
         for b in range(ref.k + 1):
             np.testing.assert_array_equal(idx.it(v, b), ref.it(v, b))
             np.testing.assert_array_equal(idx.is_(v, b), ref.is_(v, b))
+
+
+def _index_pair(name, s, t, k):
+    """``repro``'s host index and both port builds of one query."""
+    ref = rc.build_index(rc.graph.random_graph_suite(0)[name], s, t, k)
+    g = tc.random_graph_suite(0)[name]
+    return ref, (tc.build_index(g, s, t, k, device="cpu"),
+                 tc.build_index_device(g, s, t, k, device="cpu"))
+
+
+HELPER_CASES = [q + (k,) for q in QUERIES for k in (2, 3, 4, 5, 6)]
+
+
+@pytest.mark.parametrize("name,s,t,k", HELPER_CASES)
+def test_level_equals_repro(name, s, t, k):
+    ref, ports = _index_pair(name, s, t, k)
+    for idx in ports:
+        for i in range(k + 1):
+            want, got = ref.level(i), idx.level(i)
+            assert got.dtype == want.dtype == np.int32
+            np.testing.assert_array_equal(got, want, err_msg=f"level {i}")
+            assert got.shape[0] == idx.level_count[i]
+
+
+@pytest.mark.parametrize("name,s,t,k", HELPER_CASES)
+def test_it_count_equals_repro(name, s, t, k):
+    ref, ports = _index_pair(name, s, t, k)
+    v = np.arange(ref.n)
+    for idx in ports:
+        for b in range(-1, k + 2):
+            want, got = ref.it_count(v, b), idx.it_count(v, b)
+            assert got.dtype == want.dtype == np.int64
+            np.testing.assert_array_equal(got, want, err_msg=f"b={b}")
+            assert idx.it_count(int(v[-1]), b) == want[-1]
+            if b >= 0:
+                assert got[s] == idx.it(s, b).shape[0]
+
+
+@pytest.mark.parametrize("name,s,t,k", HELPER_CASES)
+def test_memory_bytes_equals_repro(name, s, t, k):
+    ref, ports = _index_pair(name, s, t, k)
+    for idx in ports:
+        assert idx.memory_bytes() == ref.memory_bytes()
+        before = idx.memory_bytes()
+        idx.device_arrays()          # the device copies are not counted
+        assert idx.memory_bytes() == before
