@@ -44,6 +44,7 @@ from . import fused as fused_mod
 from . import planner as planner_mod
 from . import rank
 from . import sharing as sharing_mod
+from . import trace
 from .device import resolve_device
 from .enumerate import (EnumResult, EnumStats, enumerate_paths_idx,
                         resolve_backend)
@@ -520,6 +521,7 @@ class BatchPathEnum:
 
         if not missing:
             return resolved
+        trace.count("index.misses", len(missing))
 
         dists: Dict[QueryKey, Dists] = {}
         if precomputed:
@@ -528,7 +530,9 @@ class BatchPathEnum:
         unmasked = [k for k in missing if k[4] == 0 and k not in dists]
         if unmasked:
             t0 = time.perf_counter()
-            dists.update(self._stacked_dists(graph, unmasked, group_builds))
+            with trace.span("index.distances"):
+                dists.update(self._stacked_dists(graph, unmasked,
+                                                 group_builds))
             timing.distance_seconds += time.perf_counter() - t0
 
         build_graph = graph
@@ -544,8 +548,9 @@ class BatchPathEnum:
             eff_mask = None
             masked_missing = [kk for kk in missing if kk not in dists]
             if masked_missing:
-                dists.update(self._stacked_dists(build_graph, masked_missing,
-                                                 group_builds))
+                with trace.span("index.distances"):
+                    dists.update(self._stacked_dists(
+                        build_graph, masked_missing, group_builds))
             timing.distance_seconds += time.perf_counter() - t0
 
         built: Dict[QueryKey, LightweightIndex] = {}
@@ -553,10 +558,11 @@ class BatchPathEnum:
             groupable = [kk for kk in missing if kk in dists]
             for grp in sharing_mod.detect_groups(groupable):
                 t0 = time.perf_counter()
-                idxs = sharing_mod.build_member_indexes(
-                    build_graph,
-                    [(kk[1], kk[2], kk[3]) for kk in grp.keys],
-                    [dists[kk] for kk in grp.keys], device=self.device)
+                with trace.span("index.build"):
+                    idxs = sharing_mod.build_member_indexes(
+                        build_graph,
+                        [(kk[1], kk[2], kk[3]) for kk in grp.keys],
+                        [dists[kk] for kk in grp.keys], device=self.device)
                 timing.index_seconds += time.perf_counter() - t0
                 built.update(zip(grp.keys, idxs))
 
@@ -569,12 +575,14 @@ class BatchPathEnum:
                 # the mask still filters the edge set when the distances
                 # are given (they were computed on the filtered graph)
                 d_s, d_t = dists[key]
-                idx = build_index(build_graph, s, t, k,
-                                  dist_fn=lambda *_a, _d=(d_s, d_t): _d,
-                                  edge_mask=eff_mask, device=self.device)
+                with trace.span("index.build"):
+                    idx = build_index(build_graph, s, t, k,
+                                      dist_fn=lambda *_a, _d=(d_s, d_t): _d,
+                                      edge_mask=eff_mask, device=self.device)
             else:  # masked query: the BFS runs on the filtered graph
-                idx = build_index(build_graph, s, t, k, edge_mask=eff_mask,
-                                  device=self.device)
+                with trace.span("index.build"):
+                    idx = build_index(build_graph, s, t, k,
+                                      edge_mask=eff_mask, device=self.device)
             timing.index_seconds += time.perf_counter() - t0
             self.cache.put(key, idx)
             resolved[key] = (idx, False)
@@ -615,19 +623,20 @@ class BatchPathEnum:
     def _plan_for(self, idx: LightweightIndex, k: int, mode: str) -> Plan:
         """One distinct query's plan under the batch ``mode`` knob; the
         engine backend steers where the full DP runs."""
-        if mode == "auto":
-            return planner_mod.plan_query(idx, tau=self.engine.tau,
-                                          backend=self.engine.backend)
-        if mode == "dfs":
-            return Plan(method="dfs", cut=None, preliminary=-1.0,
-                        used_full_estimator=False)
-        if mode == "join":
-            dp_plan = planner_mod.plan_query(idx, tau=-1.0,
-                                             backend=self.engine.backend)
-            cut = dp_plan.cut if dp_plan.cut else max(1, k // 2)
-            return Plan(method="join", cut=cut, preliminary=-1.0,
-                        used_full_estimator=True)
-        raise ValueError(f"unknown mode {mode!r}")
+        with trace.span("planner.plan"):
+            if mode == "auto":
+                return planner_mod.plan_query(idx, tau=self.engine.tau,
+                                              backend=self.engine.backend)
+            if mode == "dfs":
+                return Plan(method="dfs", cut=None, preliminary=-1.0,
+                            used_full_estimator=False)
+            if mode == "join":
+                dp_plan = planner_mod.plan_query(idx, tau=-1.0,
+                                                 backend=self.engine.backend)
+                cut = dp_plan.cut if dp_plan.cut else max(1, k // 2)
+                return Plan(method="join", cut=cut, preliminary=-1.0,
+                            used_full_estimator=True)
+            raise ValueError(f"unknown mode {mode!r}")
 
     # -- enumeration --------------------------------------------------------
     def _enumerate(self, idx: LightweightIndex, plan: Plan, count_only: bool,
@@ -636,17 +645,17 @@ class BatchPathEnum:
                    weights: Optional[np.ndarray] = None) -> EnumResult:
         """One query's solo enumeration under its plan."""
         if plan.method == "dfs":
-            return enumerate_paths_idx(idx, chunk_size=self.engine.chunk_size,
-                                       count_only=count_only, first_n=first_n,
-                                       deadline=deadline,
-                                       backend=self.engine.backend,
-                                       order=order, weights=weights,
-                                       device=idx.device)
-        return enumerate_paths_join(idx, cut=plan.cut, count_only=count_only,
-                                    first_n=first_n,
-                                    max_partials=self.engine.max_partials,
-                                    deadline=deadline, order=order,
-                                    weights=weights)
+            with trace.span("enumeration.dfs"):
+                return enumerate_paths_idx(
+                    idx, chunk_size=self.engine.chunk_size,
+                    count_only=count_only, first_n=first_n,
+                    deadline=deadline, backend=self.engine.backend,
+                    order=order, weights=weights, device=idx.device)
+        with trace.span("enumeration.join"):
+            return enumerate_paths_join(
+                idx, cut=plan.cut, count_only=count_only, first_n=first_n,
+                max_partials=self.engine.max_partials, deadline=deadline,
+                order=order, weights=weights)
 
     def run(self, graph: Graph, queries: Sequence[Tuple[int, int, int]],
             count_only: bool = True, first_n: Optional[int] = None,
@@ -674,139 +683,149 @@ class BatchPathEnum:
         (``weights``: graph edge order, non-negative), ``first_n`` is the
         per-query top n and a deadline truncation a rank-optimal prefix.
         """
-        rank.make_rank_spec(order, weights)
-        t_batch = time.perf_counter()
-        timing = BatchTiming()
-        stats_before = self.cache.stats.snapshot()
-        for (s, t, k) in queries:
-            if k < 2:
-                raise ValueError("paper assumes k >= 2")
-            if s == t:
-                raise ValueError("s and t must be distinct")
-        mh = edge_mask_hash(edge_mask)
-        gv = int(graph.version)
-        keys = [(graph_id, int(s), int(t), int(k), mh, gv)
-                for (s, t, k) in queries]
-        eff_sharing: str = sharing_mod.resolve_sharing(
-            self.sharing if sharing is None else sharing)
+        # the query count now, the distinct count once the keys are made
+        attrs = {"queries": len(queries)} if trace.enabled() else None
+        with trace.span("engine.run", attrs):
+            rank.make_rank_spec(order, weights)
+            t_batch = time.perf_counter()
+            timing = BatchTiming()
+            stats_before = self.cache.stats.snapshot()
+            for (s, t, k) in queries:
+                if k < 2:
+                    raise ValueError("paper assumes k >= 2")
+                if s == t:
+                    raise ValueError("s and t must be distinct")
+            mh = edge_mask_hash(edge_mask)
+            gv = int(graph.version)
+            keys = [(graph_id, int(s), int(t), int(k), mh, gv)
+                    for (s, t, k) in queries]
+            if attrs is not None:
+                attrs["distinct"] = len(dict.fromkeys(keys))
+            eff_sharing: str = sharing_mod.resolve_sharing(
+                self.sharing if sharing is None else sharing)
 
-        resolved = self._indexes_for(graph, keys, edge_mask,
-                                     _precomputed_distances, timing,
-                                     group_builds=eff_sharing == "auto")
+            with trace.span("index.resolve"):
+                resolved = self._indexes_for(
+                    graph, keys, edge_mask, _precomputed_distances, timing,
+                    group_builds=eff_sharing == "auto")
 
-        # sharing phase (DESIGN.md §13): plan the distinct keys up front,
-        # then serve whole overlap groups off one shared prefix walk.
-        # Ranked batches opt out (a shared walk does not emit in rank
-        # order) and keep construction sharing only
-        shared_results: Dict[QueryKey, EnumResult] = {}
-        shared_latency: Dict[QueryKey, float] = {}
-        plans_pre: Dict[QueryKey, Plan] = {}
-        plan_wall: Dict[QueryKey, float] = {}
-        n_groups = 0
+            # sharing phase (DESIGN.md §13): plan the distinct keys up front,
+            # then serve whole overlap groups off one shared prefix walk.
+            # Ranked batches opt out (a shared walk does not emit in rank
+            # order) and keep construction sharing only
+            shared_results: Dict[QueryKey, EnumResult] = {}
+            shared_latency: Dict[QueryKey, float] = {}
+            plans_pre: Dict[QueryKey, Plan] = {}
+            plan_wall: Dict[QueryKey, float] = {}
+            n_groups = 0
 
-        def plan_all() -> None:
-            for key in keys:
-                if key in plans_pre:
-                    continue
+            def plan_all() -> None:
+                for key in keys:
+                    if key in plans_pre:
+                        continue
+                    t0 = time.perf_counter()
+                    plan = self._plan_for(resolved[key][0], key[3], mode)
+                    plan_wall[key] = time.perf_counter() - t0
+                    timing.optimize_seconds += plan.optimize_seconds
+                    plans_pre[key] = plan
+
+            if eff_sharing == "auto" and order is None:
+                plan_all()
+                if len(plans_pre) > 1:
+                    t1 = time.perf_counter()
+                    with trace.span("enumeration.shared"):
+                        shared_results, shared_latency, n_groups = \
+                            sharing_mod.run_shared_groups(
+                                self, resolved, plans_pre,
+                                count_only=count_only, first_n=first_n,
+                                deadline=deadline, graph_id=graph_id)
+                    timing.enumerate_seconds += time.perf_counter() - t1
+
+            # fused device phase (DESIGN.md §9): the remaining dfs-plan
+            # queries that resolve to the device backend expand together,
+            # one K5 launch per round for the whole batch; ranked batches
+            # keep the solo path
+            fused_results: Dict[QueryKey, EnumResult] = {}
+            fused_latency: Dict[QueryKey, float] = {}
+            fused_dispatches = 0
+            if order is None and self.fused != "off" \
+                    and self.engine.backend in ("device", "auto"):
+                plan_all()
+                elig = [kk for kk in dict.fromkeys(keys)
+                        if kk not in shared_results
+                        and plans_pre[kk].method == "dfs"
+                        and resolve_backend(resolved[kk][0],
+                                            self.engine.backend) == "device"]
+                if len(elig) >= 2:
+                    t1 = time.perf_counter()
+                    before = kops.device_dispatch_count()
+                    with trace.span("enumeration.fused"):
+                        res_list = fused_mod.enumerate_fused_device(
+                            [resolved[kk][0] for kk in elig],
+                            chunk_size=self.engine.chunk_size,
+                            count_only=count_only, first_n=first_n,
+                            deadline=deadline)
+                    fused_dispatches = kops.device_dispatch_count() - before
+                    wall = time.perf_counter() - t1
+                    timing.enumerate_seconds += wall
+                    fused_results = dict(zip(elig, res_list))
+                    share = wall / len(elig)
+                    fused_latency = {kk: share for kk in elig}
+
+            items: List[Optional[BatchItem]] = [None] * len(keys)
+            memo: Dict[QueryKey, BatchItem] = {}
+            for pos, key in enumerate(keys):
                 t0 = time.perf_counter()
-                plan = self._plan_for(resolved[key][0], key[3], mode)
-                plan_wall[key] = time.perf_counter() - t0
-                timing.optimize_seconds += plan.optimize_seconds
-                plans_pre[key] = plan
+                prior = memo.get(key)
+                if prior is not None:
+                    items[pos] = dataclasses.replace(
+                        prior, deduplicated=True, index_cached=True,
+                        latency_seconds=time.perf_counter() - t0)
+                    continue
+                idx, was_cached = resolved[key]
+                plan_opt = plans_pre.get(key)
+                if plan_opt is None:
+                    plan = self._plan_for(idx, key[3], mode)
+                    timing.optimize_seconds += plan.optimize_seconds
+                else:
+                    plan = plan_opt
+                res_opt = shared_results.get(key)
+                fused_opt = fused_results.get(key)
+                if res_opt is not None:
+                    res = res_opt
+                    extra = shared_latency[key] + plan_wall.get(key, 0.0)
+                elif fused_opt is not None:
+                    res = fused_opt
+                    extra = fused_latency[key] + plan_wall.get(key, 0.0)
+                else:
+                    extra = plan_wall.get(key, 0.0)
+                    t1 = time.perf_counter()
+                    res = self._enumerate(idx, plan, count_only, first_n,
+                                          deadline, order=order,
+                                          weights=weights)
+                    timing.enumerate_seconds += time.perf_counter() - t1
+                item = BatchItem(s=key[1], t=key[2], k=key[3], result=res,
+                                 plan=plan, index_cached=was_cached,
+                                 deduplicated=False,
+                                 latency_seconds=(time.perf_counter() - t0
+                                                  + extra),
+                                 shared=res_opt is not None,
+                                 fused=fused_opt is not None)
+                memo[key] = item
+                items[pos] = item
 
-        if eff_sharing == "auto" and order is None:
-            plan_all()
-            if len(plans_pre) > 1:
-                t1 = time.perf_counter()
-                shared_results, shared_latency, n_groups = \
-                    sharing_mod.run_shared_groups(
-                        self, resolved, plans_pre, count_only=count_only,
-                        first_n=first_n, deadline=deadline,
-                        graph_id=graph_id)
-                timing.enumerate_seconds += time.perf_counter() - t1
-
-        # fused device phase (DESIGN.md §9): the remaining dfs-plan
-        # queries that resolve to the device backend expand together,
-        # one K5 launch per round for the whole batch; ranked batches
-        # keep the solo path
-        fused_results: Dict[QueryKey, EnumResult] = {}
-        fused_latency: Dict[QueryKey, float] = {}
-        fused_dispatches = 0
-        if order is None and self.fused != "off" \
-                and self.engine.backend in ("device", "auto"):
-            plan_all()
-            elig = [kk for kk in dict.fromkeys(keys)
-                    if kk not in shared_results
-                    and plans_pre[kk].method == "dfs"
-                    and resolve_backend(resolved[kk][0],
-                                        self.engine.backend) == "device"]
-            if len(elig) >= 2:
-                t1 = time.perf_counter()
-                before = kops.device_dispatch_count()
-                res_list = fused_mod.enumerate_fused_device(
-                    [resolved[kk][0] for kk in elig],
-                    chunk_size=self.engine.chunk_size,
-                    count_only=count_only, first_n=first_n,
-                    deadline=deadline)
-                fused_dispatches = kops.device_dispatch_count() - before
-                wall = time.perf_counter() - t1
-                timing.enumerate_seconds += wall
-                fused_results = dict(zip(elig, res_list))
-                share = wall / len(elig)
-                fused_latency = {kk: share for kk in elig}
-
-        items: List[Optional[BatchItem]] = [None] * len(keys)
-        memo: Dict[QueryKey, BatchItem] = {}
-        for pos, key in enumerate(keys):
-            t0 = time.perf_counter()
-            prior = memo.get(key)
-            if prior is not None:
-                items[pos] = dataclasses.replace(
-                    prior, deduplicated=True, index_cached=True,
-                    latency_seconds=time.perf_counter() - t0)
-                continue
-            idx, was_cached = resolved[key]
-            plan_opt = plans_pre.get(key)
-            if plan_opt is None:
-                plan = self._plan_for(idx, key[3], mode)
-                timing.optimize_seconds += plan.optimize_seconds
-            else:
-                plan = plan_opt
-            res_opt = shared_results.get(key)
-            fused_opt = fused_results.get(key)
-            if res_opt is not None:
-                res = res_opt
-                extra = shared_latency[key] + plan_wall.get(key, 0.0)
-            elif fused_opt is not None:
-                res = fused_opt
-                extra = fused_latency[key] + plan_wall.get(key, 0.0)
-            else:
-                extra = plan_wall.get(key, 0.0)
-                t1 = time.perf_counter()
-                res = self._enumerate(idx, plan, count_only, first_n,
-                                      deadline, order=order, weights=weights)
-                timing.enumerate_seconds += time.perf_counter() - t1
-            item = BatchItem(s=key[1], t=key[2], k=key[3], result=res,
-                             plan=plan, index_cached=was_cached,
-                             deduplicated=False,
-                             latency_seconds=(time.perf_counter() - t0
-                                              + extra),
-                             shared=res_opt is not None,
-                             fused=fused_opt is not None)
-            memo[key] = item
-            items[pos] = item
-
-        timing.started_at = t_batch
-        timing.ended_at = time.perf_counter()
-        timing.total_seconds = timing.ended_at - t_batch
-        return BatchOutput(items=list(items),  # type: ignore[arg-type]
-                           timing=timing,
-                           cache_stats=self.cache.stats.delta(stats_before),
-                           distinct_queries=len(memo), graph_id=graph_id,
-                           sharing_groups=n_groups,
-                           shared_queries=len(shared_results),
-                           fused_queries=len(fused_results),
-                           fused_dispatches=fused_dispatches)
+            timing.started_at = t_batch
+            timing.ended_at = time.perf_counter()
+            timing.total_seconds = timing.ended_at - t_batch
+            return BatchOutput(items=list(items),  # type: ignore[arg-type]
+                               timing=timing,
+                               cache_stats=self.cache.stats.delta(
+                                   stats_before),
+                               distinct_queries=len(memo), graph_id=graph_id,
+                               sharing_groups=n_groups,
+                               shared_queries=len(shared_results),
+                               fused_queries=len(fused_results),
+                               fused_dispatches=fused_dispatches)
 
     def counts(self, graph: Graph, queries: Sequence[Tuple[int, int, int]],
                **kw) -> np.ndarray:

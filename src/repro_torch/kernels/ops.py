@@ -41,6 +41,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import trace
 from . import _build
 from .frontier_expand import (PAD, children, compact, frontier_fused_masks,
                               frontier_fused_masks_table, frontier_hop,
@@ -185,72 +186,84 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
     per-member Fig.-6 counters.  The ``wantc`` suppression happens after
     the kernel, which always computes the full continue mask, so the
     counters equal the single-query kernel's.
+
+    With the recorder of ``core.trace`` on, the call is a
+    ``k5.dispatch`` span with children ``k5.stage`` (the host buffer and
+    the copy in) and ``k5.launch`` (the masks kernel, the compaction,
+    ``children`` and the per-member counts), and it counts
+    ``k5.dispatches``, ``k5.rows`` and ``k5.members``.
     """
     global _dispatch_count
-    paths = np.asarray(paths, dtype=np.int32)
-    rows, k1 = paths.shape
-    m = len(begins)
-    if max_deg < 1:
-        raise ValueError("zero-fanout chunks never reach the device")
-    if member_table is not None and member_table.shape != (m, 5):
-        raise ValueError(f"member_table must be ({m}, 5), got "
-                         f"{member_table.shape}")
-    C = _next_pow2(max(rows, 8))
-    dev = begins[0].device
-    on_card = dev.type == "cuda"
-    # one host buffer, one copy: on the card the int64 member table of K5
-    # first, then the int32 [paths | rank | tvec | depthv | wantc], from
-    # pinned memory without a stream sync
-    n_tab = 5 * m if on_card else 0
-    n32 = C * k1 + C + 3 * m
-    host = torch.empty(n_tab + (n32 + 1) // 2, dtype=torch.int64,
-                       pin_memory=on_card)
-    if on_card:
-        if member_table is None:
-            member_table = fused_member_table(begins, ends, dsts, k1max=k1,
-                                              device=dev)
-        host.numpy()[:n_tab] = member_table.reshape(-1)
-    buf = host.numpy()[n_tab:].view(np.int32)
-    buf[:C * k1] = PAD
-    buf[:rows * k1] = paths.reshape(-1)
-    o = C * k1
-    buf[o:o + C] = 0
-    buf[o:o + rows] = rank
-    o += C
-    buf[o:o + m] = tvec
-    buf[o + m:o + 2 * m] = depthv
-    buf[o + 2 * m:o + 3 * m] = np.asarray(wantc, dtype=bool)
-    dbuf = host.to(dev, non_blocking=True)
-    d32 = dbuf[n_tab:].view(torch.int32)
-    p = d32[:C * k1].view(C, k1)
-    rk = d32[C * k1:o]
-    tv = d32[o:o + m]
-    dv = d32[o + m:o + 2 * m]
-    wc = d32[o + 2 * m:o + 3 * m] != 0
-    md = _next_pow2(max_deg)
-    if on_card:
-        vnew, emit, cont, counters = frontier_fused_masks_table(
-            p, rk, tv, dv, dbuf[:n_tab].view(m, 5), max_deg=md)
-    else:
-        vnew, emit, cont, counters = frontier_fused_masks(
-            p, rk, tv, dv, begins, ends, dsts, max_deg=md)
-    vflat = vnew.view(-1)
-    rankflat = rk.long().repeat_interleave(md)
-    depth_rows = dv.long().index_select(0, rk.long())
+    with trace.span("k5.dispatch"):
+        paths = np.asarray(paths, dtype=np.int32)
+        rows, k1 = paths.shape
+        m = len(begins)
+        if max_deg < 1:
+            raise ValueError("zero-fanout chunks never reach the device")
+        if member_table is not None and member_table.shape != (m, 5):
+            raise ValueError(f"member_table must be ({m}, 5), got "
+                             f"{member_table.shape}")
+        trace.count("k5.dispatches")
+        trace.count("k5.rows", rows)
+        trace.count("k5.members", m)
+        C = _next_pow2(max(rows, 8))
+        dev = begins[0].device
+        on_card = dev.type == "cuda"
+        with trace.span("k5.stage"):
+            # one host buffer, one copy: on the card the int64 member
+            # table of K5 first, then the int32 [paths | rank | tvec |
+            # depthv | wantc], from pinned memory without a stream sync
+            n_tab = 5 * m if on_card else 0
+            n32 = C * k1 + C + 3 * m
+            host = torch.empty(n_tab + (n32 + 1) // 2, dtype=torch.int64,
+                               pin_memory=on_card)
+            if on_card:
+                if member_table is None:
+                    member_table = fused_member_table(begins, ends, dsts,
+                                                      k1max=k1, device=dev)
+                host.numpy()[:n_tab] = member_table.reshape(-1)
+            buf = host.numpy()[n_tab:].view(np.int32)
+            buf[:C * k1] = PAD
+            buf[:rows * k1] = paths.reshape(-1)
+            o = C * k1
+            buf[o:o + C] = 0
+            buf[o:o + rows] = rank
+            o += C
+            buf[o:o + m] = tvec
+            buf[o + m:o + 2 * m] = depthv
+            buf[o + 2 * m:o + 3 * m] = np.asarray(wantc, dtype=bool)
+            dbuf = host.to(dev, non_blocking=True)
+        with trace.span("k5.launch"):
+            d32 = dbuf[n_tab:].view(torch.int32)
+            p = d32[:C * k1].view(C, k1)
+            rk = d32[C * k1:o]
+            tv = d32[o:o + m]
+            dv = d32[o + m:o + 2 * m]
+            wc = d32[o + 2 * m:o + 3 * m] != 0
+            md = _next_pow2(max_deg)
+            if on_card:
+                vnew, emit, cont, counters = frontier_fused_masks_table(
+                    p, rk, tv, dv, dbuf[:n_tab].view(m, 5), max_deg=md)
+            else:
+                vnew, emit, cont, counters = frontier_fused_masks(
+                    p, rk, tv, dv, begins, ends, dsts, max_deg=md)
+            vflat = vnew.view(-1)
+            rankflat = rk.long().repeat_interleave(md)
+            depth_rows = dv.long().index_select(0, rk.long())
 
-    def per_member(flat: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros(m, dtype=torch.int32, device=p.device)
-        return out.scatter_add_(0, rankflat, flat.to(torch.int32))
+            def per_member(flat: torch.Tensor) -> torch.Tensor:
+                out = torch.zeros(m, dtype=torch.int32, device=p.device)
+                return out.scatter_add_(0, rankflat, flat.to(torch.int32))
 
-    flat_emit = emit.view(-1) != 0
-    eidx, _ = compact(flat_emit)
-    emit_rows = children(p, vflat, eidx, depth_rows, md)
-    flat_cont = (cont.view(-1) != 0) & wc.index_select(0, rankflat)
-    cidx, _ = compact(flat_cont)
-    cont_rows = children(p, vflat, cidx, depth_rows, md)
-    _dispatch_count += 1
-    return (emit_rows, cont_rows, per_member(flat_emit),
-            per_member(flat_cont), counters)
+            flat_emit = emit.view(-1) != 0
+            eidx, _ = compact(flat_emit)
+            emit_rows = children(p, vflat, eidx, depth_rows, md)
+            flat_cont = (cont.view(-1) != 0) & wc.index_select(0, rankflat)
+            cidx, _ = compact(flat_cont)
+            cont_rows = children(p, vflat, cidx, depth_rows, md)
+            n_emit_m, n_cont_m = per_member(flat_emit), per_member(flat_cont)
+        _dispatch_count += 1
+        return emit_rows, cont_rows, n_emit_m, n_cont_m, counters
 
 
 # ---------------------------------------------------------------------------

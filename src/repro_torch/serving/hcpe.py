@@ -25,6 +25,7 @@ import torch
 
 from ..core.batch import (BatchItem, BatchOutput, BatchPathEnum, BatchTiming,
                           CacheStats, DEFAULT_GRAPH_ID)
+from ..core import trace
 from ..core.enumerate import EnumStats
 from ..core.graph import Graph
 from .registry import GraphRegistry
@@ -283,43 +284,47 @@ class HcPEServer:
         """Serve one request batch; responses come back in request order,
         alongside the batch-level ``BatchServeReport`` (latency
         percentiles, throughput, cache deltas global + per tenant)."""
-        responses: List[Optional[PathQueryResponse]] = [None] * len(requests)
-        outputs: List[BatchOutput] = []
-        for key, positions in group_requests(requests).items():
-            graph_id, count_only, first_n, order = key
-            if graph_id not in self.registry:
-                for p in positions:
-                    responses[p] = rejection_response(
-                        requests[p], STATUS_REJECTED_UNKNOWN_GRAPH)
-                continue
-            weights = None
-            if order == "weight":
-                weights = self.registry.entry(graph_id).edge_weights
-                if weights is None:
+        attrs = ({"uids": [r.uid for r in requests]} if trace.enabled()
+                 else None)
+        with trace.span("serve", attrs):
+            responses: List[Optional[PathQueryResponse]] = \
+                [None] * len(requests)
+            outputs: List[BatchOutput] = []
+            for key, positions in group_requests(requests).items():
+                graph_id, count_only, first_n, order = key
+                if graph_id not in self.registry:
                     for p in positions:
                         responses[p] = rejection_response(
-                            requests[p], STATUS_REJECTED_NO_WEIGHTS)
+                            requests[p], STATUS_REJECTED_UNKNOWN_GRAPH)
                     continue
-            queries = [(requests[p].s, requests[p].t, requests[p].k)
-                       for p in positions]
-            out = self.engine.run(self.registry.get(graph_id), queries,
-                                  count_only=count_only, first_n=first_n,
-                                  graph_id=graph_id, order=order,
-                                  weights=weights)
-            outputs.append(out)
-            self.enum_totals.merge(out.enum_stats)
-            for p, item in zip(positions, out.items):
-                resp = response_from_item(requests[p], item)
-                resp.service_ms = resp.total_ms = resp.latency_ms
-                responses[p] = resp
-        report = BatchServeReport.from_outputs(outputs)
-        # the per-group sum double-counts a (s,t,k) served under several
-        # serving options; the request list is the truth (rejected
-        # requests did no engine work and don't count)
-        report.distinct_queries = len(
-            {(r.graph_id, r.s, r.t, r.k) for r in requests
-             if r.graph_id in self.registry})
-        return list(responses), report  # type: ignore[arg-type]
+                weights = None
+                if order == "weight":
+                    weights = self.registry.entry(graph_id).edge_weights
+                    if weights is None:
+                        for p in positions:
+                            responses[p] = rejection_response(
+                                requests[p], STATUS_REJECTED_NO_WEIGHTS)
+                        continue
+                queries = [(requests[p].s, requests[p].t, requests[p].k)
+                           for p in positions]
+                out = self.engine.run(self.registry.get(graph_id), queries,
+                                      count_only=count_only, first_n=first_n,
+                                      graph_id=graph_id, order=order,
+                                      weights=weights)
+                outputs.append(out)
+                self.enum_totals.merge(out.enum_stats)
+                for p, item in zip(positions, out.items):
+                    resp = response_from_item(requests[p], item)
+                    resp.service_ms = resp.total_ms = resp.latency_ms
+                    responses[p] = resp
+            report = BatchServeReport.from_outputs(outputs)
+            # the per-group sum double-counts a (s,t,k) served under several
+            # serving options; the request list is the truth (rejected
+            # requests did no engine work and don't count)
+            report.distinct_queries = len(
+                {(r.graph_id, r.s, r.t, r.k) for r in requests
+                 if r.graph_id in self.registry})
+            return list(responses), report  # type: ignore[arg-type]
 
 
 def _interval_union_seconds(spans: List[Tuple[float, float]]) -> float:
