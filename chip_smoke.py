@@ -269,18 +269,22 @@ phase 11, phase 13, each leg of phase 15,
 phase 16, the ``shard_train`` and ``shard_serve`` legs of phase 17 and
 each example of phase 18, each read just after its phase, leg or
 example.  K5 is held against its plain
-version at the shape of the fused leg's largest dispatch (a ``kernel``
-line, timed through the entry the fused expand calls, on a member table
-already on the card, with ``device_ms`` beside it; ``list_entry_ms``
-times the list-taking entry, which builds and copies the table, and
-``dispatch_ms`` the whole fused expand, drained after each call).  K1's
+version at the shape of the fused leg's largest dispatch, once by entry:
+the masks (a ``kernel`` line timed on a member table already on the
+card, with ``device_ms`` beside it; ``list_entry_ms`` times the
+list-taking entry, which builds and copies the table) and the hop, which
+the fused expand calls (the ``frontier_fused_hop`` ``kernel`` line: the
+entry's ``ms`` and ``device_ms`` on the rows unpadded, ``dispatch_ms``
+for the whole fused expand, drained after each call, and its device
+operations, at most 5).  K1's
 hop entry is held against its plain version at the largest hop of the
 large phase's ``first_n`` leg (the ``frontier_hop`` ``kernel`` line: the
 entry's ``ms`` and ``device_ms``, ``hop_ms`` for the whole hop as the
 driver pays it, drained, and its device operations, at most 7).  Last,
 the script prints the ``kernels`` line (K1–K7, K6 as its two kernels;
-``frontier_hop`` and ``bfs_dense`` beside K1 and K4, whose counts take
-every launch of their kernel from either entry), the card's name and
+``frontier_hop``, ``frontier_fused_hop`` and ``bfs_dense`` beside K1, K5
+and K4, whose counts take every launch of their kernel from either
+entry), the card's name and
 power limit as nvidia-smi gives them, and the ``ok`` line.
 Any failed check exits non-zero before those lines.  Without a CUDA
 device, or outside a checkout, it exits non-zero at once.
@@ -313,8 +317,8 @@ PICK_SECONDS = 150.0             # probe budget for the large queries
 RANKED_FIRST_N = 1000            # the ranked phase's top-n requests
 
 PATHENUM_KERNELS = ("frontier_masks", "frontier_hop", "frontier_fused_masks",
-                    "frontier_deque_round", "counting_spmm", "minplus_spmv",
-                    "bfs_dense")
+                    "frontier_fused_hop", "frontier_deque_round",
+                    "counting_spmm", "minplus_spmv", "bfs_dense")
 LM_KERNELS = ("flash_attention", "decode_attention")
 LM_BF16_KERNELS = ("flash_attention_sm90", "decode_attention")
 # kernels the mesh phase must not launch: the DP and BFS run as torch
@@ -1052,14 +1056,12 @@ def dispatch_ms(torch, fn, reps: int) -> float:
 
 
 def fused_kernel_row(torch, np, fe, ops, largest, dev):
-    """K5 against its plain version at the fused leg's largest dispatch,
-    padded as ``ops.frontier_expand_fused`` pads it.  ``ms`` and
-    ``device_ms`` time the entry the fused expand launches, on a member
-    table already on the card; ``list_entry_ms`` the list-taking entry,
-    which builds and copies the table (the span of ``ms`` before the
-    table entry existed); ``dispatch_ms`` the whole fused expand on the
-    same arguments, drained after each call, as the fused driver pays a
-    dispatch."""
+    """K5's masks entry against its plain version at the fused leg's
+    largest dispatch, padded as the fused expand's CPU route pads it.
+    ``ms`` and ``device_ms`` time the masks entry on a member table
+    already on the card; ``list_entry_ms`` the list-taking entry, which
+    builds and copies the table.  The fused expand launches K5's hop
+    entry (``fused_hop_kernel_row``)."""
     paths, rank, tvec, depthv, begins, ends, dsts = largest["args"]
     rank = np.asarray(rank)
     rows, k1 = paths.shape
@@ -1111,22 +1113,92 @@ def fused_kernel_row(torch, np, fe, ops, largest, dev):
               + 3 * C * md * 4 + m * (5 * 8 + 8) + m * 16)
     # per candidate edge: one compare per prefix entry, plus the range,
     # emit, continue and clip tests
-    b_ms, b_by = bound(nbytes, int((cnt * (depth_rows + 4)).sum()))
-    row = dict(
+    n_ops = int((cnt * (depth_rows + 4)).sum())
+    b_ms, b_by = bound(nbytes, n_ops)
+    row = dict(bound_ops=n_ops,
         max_abs_err=err, ms=time_ms(torch, run, 50),
         device_ms=device_ms(torch, run, 50),
         list_entry_ms=time_ms(torch, lambda: fe.frontier_fused_masks(
             *args, max_deg=md), 50),
-        dispatch_ms=dispatch_ms(torch, lambda: ops.frontier_expand_fused(
-            paths, rank, tvec, depthv, begins, ends, dsts,
-            largest["wantc"], max_deg=largest["max_deg"],
-            member_table=largest["member_table"]), 50),
         plain_ms=time_ms(torch, lambda: fe.frontier_fused_masks_plain(
             *args, max_deg=md), 10),
         bound_ms=b_ms, bound_by=b_by, library_ms=None,
         shape=dict(rows=C, real_rows=rows, members=m, k1=k1, max_deg=md,
                    edges=edges, valid_rows=int(valid.sum())))
     emit({"phase": "kernel", "name": "frontier_fused_masks", **row})
+    return row
+
+
+def fused_hop_kernel_row(torch, np, fe, ops, largest, dev, masks_row):
+    """K5's hop entry against its plain version at the fused leg's largest
+    dispatch, on the rows unpadded, as the fused expand hands them to the
+    card: ``ms`` and ``device_ms`` time the entry on rows and a member
+    table already on the card; ``dispatch_ms`` the whole
+    ``ops.frontier_expand_fused`` (the copy in and the hop), drained after
+    each call, with its device operations (at most 5) and the card's busy
+    time per dispatch from the profiler.  The bound counts the masks
+    line's inputs (``masks_row``'s edges) and each child row written
+    once."""
+    paths, rank, tvec, depthv, begins, ends, dsts = largest["args"]
+    rank = np.asarray(rank, np.int32)
+    rows, k1 = paths.shape
+    m = len(begins)
+    md = 1 << max(largest["max_deg"] - 1, 0).bit_length()
+    wantc = np.asarray(largest["wantc"], bool)
+    p, rk, tv, dv, wc = (torch.from_numpy(np.ascontiguousarray(x, np.int32))
+                         .to(dev) for x in (paths, rank, tvec, depthv,
+                                            wantc))
+    table = torch.from_numpy(fe.fused_member_table(
+        begins, ends, dsts, k1max=k1, device=dev)).to(dev)
+
+    def run():
+        return fe.frontier_fused_hop(p, rk, tv, dv, wc, table, max_deg=md)
+
+    def dispatch():
+        return ops.frontier_expand_fused(
+            paths, rank, tvec, depthv, begins, ends, dsts, wantc,
+            max_deg=largest["max_deg"], member_table=largest["member_table"])
+    got = run()
+    want = fe.frontier_fused_hop_plain(p, rk, tv, dv, wc, begins, ends, dsts,
+                                       max_deg=md)
+    head = want[2]
+    ne, nc = int(head[:m].sum()), int(head[m:2 * m].sum())
+    out = dispatch()
+    err = max(max_abs_err(torch, [got[2], got[0][:ne], got[1][:nc]],
+                          [head, want[0][:ne], want[1][:nc]]),
+              max_abs_err(torch, [out[2].as_strided((6 * m,), (1,)),
+                                  out[0][:ne], out[1][:nc]],
+                          [head, want[0][:ne], want[1][:nc]]))
+    check(err == 0, f"frontier_fused_hop differs from its plain version: "
+                    f"{err}")
+    edges = masks_row["shape"]["edges"]
+    check(edges == int(head[2 * m:].view(m, 4)[:, 0].sum()),
+          "K5's hop and masks count different edges")
+    depth_rows = np.asarray(depthv)[rank].astype(np.int64)
+    valid = paths[np.arange(rows), depth_rows] >= 0
+    # each valid row's prefix to its depth and its begin/end gathers, one
+    # int32 of each other row, the rank tags, one dst read per candidate
+    # edge, the member table, t, depth and wantc, the head, and each child
+    # row written once
+    nbytes = (int(((depth_rows[valid] + 1) * 4 + 8).sum())
+              + int((rows - valid.sum()) * 4) + rows * 4 + edges * 4
+              + m * (5 * 8 + 12) + 24 * m + (ne + nc) * k1 * 4)
+    cnt_ops = masks_row["bound_ops"]
+    b_ms, b_by = bound(nbytes, cnt_ops)
+    n_ops, busy = device_ops(torch, dispatch, 20)
+    check(n_ops <= 5, f"a fused dispatch makes {n_ops} device operations")
+    row = dict(
+        max_abs_err=err, ms=time_ms(torch, run, 50),
+        device_ms=device_ms(torch, run, 50),
+        dispatch_ms=dispatch_ms(torch, dispatch, 50),
+        device_ops=n_ops, device_busy_us=busy,
+        plain_ms=time_ms(torch, lambda: fe.frontier_fused_hop_plain(
+            p, rk, tv, dv, wc, begins, ends, dsts, max_deg=md), 10),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        shape=dict(rows=rows, members=m, k1=k1, max_deg=md, edges=edges,
+                   n_emit=ne, n_cont=nc, valid_rows=int(valid.sum()),
+                   last_hop_members=int((~wantc).sum())))
+    emit({"phase": "kernel", "name": "frontier_fused_hop", **row})
     return row
 
 
@@ -4347,6 +4419,8 @@ def main() -> None:
 
     rows["frontier_fused_masks"] = fused_kernel_row(torch, np, fe, ops, largest,
                                                     dev)
+    rows["frontier_fused_hop"] = fused_hop_kernel_row(
+        torch, np, fe, ops, largest, dev, rows["frontier_fused_masks"])
     rows["frontier_hop"] = hop_kernel_row(torch, np, fe, ops, largest_hop,
                                           dev)
     check_phase(np, tc, large_runs, small_runs, g_small, dev)
@@ -4381,7 +4455,8 @@ def main() -> None:
                                    args.seed)
     check(ranked_launches["frontier_hop"] > 0,
           "frontier_hop never launched in the ranked phase")
-    for name in ("frontier_fused_masks", "frontier_deque_round"):
+    for name in ("frontier_fused_masks", "frontier_fused_hop",
+                 "frontier_deque_round"):
         check(ranked_launches[name] == 0,
               f"{name} launched in the ranked phase")
     for name in LM_KERNELS + LM_BF16_KERNELS:
@@ -4510,6 +4585,9 @@ def main() -> None:
         "frontier_hop": ("src/repro_torch/kernels/csrc/frontier.cu",
                          "src/repro/kernels/frontier_expand.py:47"),
         "frontier_fused_masks": (
+            "src/repro_torch/kernels/csrc/frontier_fused.cu",
+            "src/repro/kernels/frontier_expand.py:95"),
+        "frontier_fused_hop": (
             "src/repro_torch/kernels/csrc/frontier_fused.cu",
             "src/repro/kernels/frontier_expand.py:95"),
         "frontier_deque_round": (

@@ -31,7 +31,6 @@ from __future__ import annotations
 from typing import List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from ..kernels import ops as kops
 from ..kernels.frontier_expand import fused_member_table
@@ -191,10 +190,11 @@ def enumerate_fused_device(
                         max_deg=max(int(packed_cnt[lo:hi].max()), 1),
                         member_table=table)
                 with trace.span("fused.readback"):
-                    # one host read for the counts, one copy per row matrix
-                    small = np.array(torch.cat([
-                        n_emit_m.long(), n_cont_m.long(),
-                        counters.long().view(-1)]).tolist(), np.int64)
+                    # one copy for the counts (the three are consecutive
+                    # views of the dispatch's (6m,) head), one per row
+                    # matrix
+                    small = n_emit_m.as_strided((6 * m,), (1,)).cpu() \
+                        .numpy().astype(np.int64)
                     ne_m, nc_m = small[:m], small[m:2 * m]
                     ctr = small[2 * m:].reshape(m, 4)
                     e_lo = np.concatenate([[0], np.cumsum(ne_m)])

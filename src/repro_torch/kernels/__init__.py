@@ -32,11 +32,13 @@ def launch_counts() -> dict:
     two kernels apart (``flash_attention`` the float32 split-TF32 kernel,
     ``flash_attention_sm90`` the bfloat16 wgmma kernel).  K1
     (``frontier_masks``) and K4 (``minplus_spmv``) count launches from
-    every entry; ``frontier_hop`` and ``bfs_dense`` count those of K1's
-    hop entry and of the one-launch BFS alone."""
+    every entry, and K5 (``frontier_fused_masks``) too;
+    ``frontier_hop``, ``frontier_fused_hop`` and ``bfs_dense`` count those
+    of K1's and K5's hop entries and of the one-launch BFS alone."""
     return {"frontier_masks": frontier_expand.launches,
             "frontier_hop": frontier_expand.hop_launches,
             "frontier_fused_masks": frontier_expand.fused_launches,
+            "frontier_fused_hop": frontier_expand.fused_hop_launches,
             "frontier_deque_round": ops.deque_rounds,
             "counting_spmm": semiring_spmm.counting_launches,
             "minplus_spmv": semiring_spmm.minplus_launches,
@@ -51,6 +53,7 @@ def reset_launch_counts() -> None:
     frontier_expand.launches = 0
     frontier_expand.hop_launches = 0
     frontier_expand.fused_launches = 0
+    frontier_expand.fused_hop_launches = 0
     ops.deque_rounds = 0
     semiring_spmm.counting_launches = 0
     semiring_spmm.minplus_launches = 0

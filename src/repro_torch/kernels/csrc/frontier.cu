@@ -9,8 +9,7 @@
 // already on the row's prefix, and split the rest into emit (== t) and
 // continue.  The Fig.-6 counters are [edges, edges, invalid, 0].
 //
-// One per-row phase (frontier.cuh, shared with K2 and K5), three
-// epilogues:
+// One per-row phase (frontier.cuh, shared with K2 and K5), two entries:
 //  * masks (`frontier_masks_launch`): the (rows, max_deg) candidate /
 //    emit / continue matrices and the counters, which the launch function
 //    zeroes on the stream before the kernel;
@@ -24,7 +23,9 @@
 //    row once, a group's children as one run of consecutive ints.  The
 //    masks never reach device memory.  Block 0 of the write launch writes
 //    `head` = [edges, edges, invalid, 0, n_emit, n_cont, 0, 0], which the
-//    host reads in one small copy; no counter needs zeroing.
+//    host reads in one small copy; no counter needs zeroing.  The lane
+//    groups, row ranges, child writes and grid are frontier.cuh's, shared
+//    with K5's hop (frontier_fused.cu).
 //
 // What bounds it on the H100: bytes.  Per candidate slot it reads one dst
 // entry (4 B); the masks write three int32 outputs a slot (12 B), the hop
@@ -55,6 +56,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kBlocksPerSm = 4;
 constexpr int kMaxGrid = 1024;  // block totals the hop's scratch holds
 constexpr int kHead = 8;        // ints of the hop's head
+using frontier::Group;
+using frontier::RowCounts;
 using frontier::kFull;
 using frontier::kPad;
 
@@ -70,39 +73,6 @@ struct Hop {
   int mf;
   int width;  // W
 };
-
-// This thread's lane group: W lanes that serve one row.
-struct Group {
-  int sub;         // lane within the group
-  int leader;      // the group's first lane in the warp
-  unsigned mask;   // the group's lanes
-  unsigned below;  // the group's lanes below this one
-  int per_step;    // rows a block walks at once
-  int slot;        // this group's row within a step
-};
-
-__device__ __forceinline__ Group group_of(int width) {
-  const int lane = threadIdx.x & 31;
-  Group g;
-  g.sub = lane & (width - 1);
-  g.leader = lane - g.sub;
-  g.mask = width == 32 ? kFull : ((1u << width) - 1u) << g.leader;
-  g.below = ((1u << lane) - 1u) & g.mask;
-  g.per_step = kThreads / width;
-  g.slot = threadIdx.x / width;
-  return g;
-}
-
-// The contiguous rows [r0, r1) of this block: whole steps of per_step
-// rows, cut evenly across the grid.
-__device__ __forceinline__ int2 block_rows(int rows, int per_step) {
-  const long long steps = (rows + per_step - 1) / per_step;
-  const long long s0 = steps * blockIdx.x / gridDim.x;
-  const long long s1 = steps * (blockIdx.x + 1) / gridDim.x;
-  const long long r1 = s1 * per_step;
-  return make_int2(static_cast<int>(s0 * per_step),
-                   static_cast<int>(r1 < rows ? r1 : rows));
-}
 
 // Prefix entries a row at `depth` has, 0..depth, within the row's width:
 // the one depth of a chunk bounds the prefix test of all its rows.
@@ -143,29 +113,12 @@ struct RowPass {
   }
 };
 
-// One row's counts over all its slot groups: emit and continue children,
-// and whether any candidate survived and how many were duplicates.
-struct RowCounts {
-  int emit = 0;
-  int cont = 0;
-  int dups = 0;
-  bool alive = false;
-
-  __device__ __forceinline__ void add(const frontier::Slot& s,
-                                      const Group& g, bool want_cont) {
-    emit += __popc(__ballot_sync(kFull, s.emit) & g.mask);
-    cont += __popc(__ballot_sync(kFull, s.cont && want_cont) & g.mask);
-    alive |= (__ballot_sync(kFull, s.emit || s.cont) & g.mask) != 0;
-    dups += __popc(__ballot_sync(kFull, s.in_range && s.dup) & g.mask);
-  }
-};
-
 __global__ void __launch_bounds__(kThreads) frontier_masks_kernel(
     Hop h, int* __restrict__ vnew, int* __restrict__ emit,
     int* __restrict__ cont, int* __restrict__ counters) {
   __shared__ int4 red[kWarps];
-  const Group g = group_of(h.width);
-  const int2 rg = block_rows(h.rows, g.per_step);
+  const Group g = frontier::group_of(h.width);
+  const int2 rg = frontier::block_rows(h.rows, g.per_step);
   int edges = 0, invalid = 0;  // on each group's first lane
   for (int base = rg.x; base < rg.y; base += g.per_step) {
     const int r = base + g.slot;
@@ -202,8 +155,8 @@ __global__ void __launch_bounds__(kThreads) frontier_masks_kernel(
 __global__ void __launch_bounds__(kThreads) frontier_hop_count_kernel(
     Hop h, int want_cont, int4* __restrict__ blk) {
   __shared__ int4 red[kWarps];
-  const Group g = group_of(h.width);
-  const int2 rg = block_rows(h.rows, g.per_step);
+  const Group g = frontier::group_of(h.width);
+  const int2 rg = frontier::block_rows(h.rows, g.per_step);
   int4 mine = make_int4(0, 0, 0, 0);
   for (int base = rg.x; base < rg.y; base += g.per_step) {
     const int r = base + g.slot;
@@ -223,27 +176,6 @@ __global__ void __launch_bounds__(kThreads) frontier_hop_count_kernel(
   if (threadIdx.x == 0) blk[blockIdx.x] = tot;
 }
 
-// The children of one kind that a group's slot batch makes (`mine` on the
-// lanes of `mask`) at rows [o, o + popc(mask)) of `out`: the lanes stage
-// the children's vertices in `sv` (the group's W slots of shared memory)
-// and write the rows' k1 ints together, consecutive lanes on consecutive
-// ints.  Every lane of the warp calls it.
-__device__ __forceinline__ long long write_children(
-    int* __restrict__ out, long long o, unsigned mask, bool mine, int v,
-    const int* prow, int k1, int col, const Group& g, int width, int* sv) {
-  __syncwarp();  // the previous batch's readers are done with sv
-  if (mine) sv[__popc(mask & g.below)] = v;
-  __syncwarp();
-  const int total = __popc(mask) * k1;
-  int* dst = out + o * k1;
-  for (int e = g.sub; e < total; e += width) {
-    const int q = e / k1;
-    const int c = e - q * k1;
-    dst[e] = c == col ? sv[q] : prow[c];
-  }
-  return o + __popc(mask);
-}
-
 // Hop, write launch: every child row at its flat row-major rank.
 __global__ void __launch_bounds__(kThreads) frontier_hop_write_kernel(
     Hop h, int want_cont, const int4* __restrict__ blk,
@@ -252,8 +184,8 @@ __global__ void __launch_bounds__(kThreads) frontier_hop_write_kernel(
   __shared__ int4 red4[kWarps];
   __shared__ int2 red2[kWarps];
   __shared__ int sv[kThreads];
-  const Group g = group_of(h.width);
-  const int2 rg = block_rows(h.rows, g.per_step);
+  const Group g = frontier::group_of(h.width);
+  const int2 rg = frontier::block_rows(h.rows, g.per_step);
   int* const gsv = sv + (threadIdx.x - g.sub);  // this group's W slots
 
   // the children of the blocks before this one, and of all blocks
@@ -309,39 +241,19 @@ __global__ void __launch_bounds__(kThreads) frontier_hop_write_kernel(
       const bool c = s.cont && want_cont;
       const unsigned em = __ballot_sync(kFull, s.emit) & g.mask;
       const unsigned cm = __ballot_sync(kFull, c) & g.mask;
-      eo = write_children(emit_rows, eo, em, s.emit, s.v, rp.row.prow, h.k1,
-                          col, g, h.width, gsv);
-      co = write_children(cont_rows, co, cm, c, s.v, rp.row.prow, h.k1, col,
-                          g, h.width, gsv);
+      eo = frontier::write_children(emit_rows, eo, em, s.emit, s.v,
+                                    rp.row.prow, h.k1, col, g, h.width, gsv);
+      co = frontier::write_children(cont_rows, co, cm, c, s.v, rp.row.prow,
+                                    h.k1, col, g, h.width, gsv);
     }
     run_e += step_tot.x;
     run_c += step_tot.y;
   }
 }
 
-// W for a fan-out bound: max_deg rounded up to a power of two, at most 32.
-int group_width(int max_deg) {
-  int width = 1;
-  while (width < max_deg && width < 32) width *= 2;
-  return width;
-}
-
-// Blocks for `rows` rows: no more than the steps of rows, kBlocksPerSm an
-// SM, and kMaxGrid.
+// Blocks for `rows` rows: frontier::hop_grid at this file's block shape.
 int grid_for(int rows, int width) {
-  static int sms[64] = {0};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
-  if (sms[dev] == 0 &&
-      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
-                             dev) != cudaSuccess)
-    sms[dev] = 1;
-  const int per_step = kThreads / width;
-  const long long steps = (static_cast<long long>(rows) + per_step - 1)
-                          / per_step;
-  long long g = static_cast<long long>(kBlocksPerSm) * sms[dev];
-  if (g > kMaxGrid) g = kMaxGrid;
-  return static_cast<int>(steps < g ? steps : g);
+  return frontier::hop_grid(rows, width, kThreads, kBlocksPerSm, kMaxGrid);
 }
 
 }  // namespace
@@ -355,7 +267,7 @@ extern "C" int frontier_masks_launch(
   cudaError_t err = cudaMemsetAsync(counters, 0, 4 * sizeof(int), stream);
   if (err != cudaSuccess || rows <= 0) return static_cast<int>(err);
   const Hop h{paths, begin, end, dst, meta, rows, k1, max_deg, mf,
-              group_width(max_deg)};
+              frontier::group_width(max_deg)};
   frontier_masks_kernel<<<grid_for(rows, h.width), kThreads, 0, stream>>>(
       h, vnew, emit, cont, counters);
   return static_cast<int>(cudaGetLastError());
@@ -375,7 +287,7 @@ extern "C" int frontier_hop_launch(
     return static_cast<int>(
         cudaMemsetAsync(head, 0, kHead * sizeof(int), stream));
   const Hop h{paths, begin, end, dst, meta, rows, k1, max_deg, mf,
-              group_width(max_deg)};
+              frontier::group_width(max_deg)};
   const int grid = grid_for(rows, h.width);
   int4* totals = reinterpret_cast<int4*>(blk);
   frontier_hop_count_kernel<<<grid, kThreads, 0, stream>>>(h, want_cont,

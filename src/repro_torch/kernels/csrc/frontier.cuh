@@ -4,8 +4,10 @@
 // K2 gives one warp to a row, whose lanes walk the row's candidate slots in
 // steps of 32 and read the prefix from memory; K1 and K5 give a row a
 // group of lanes and test the prefix held in lane registers
-// (PrefixInLanes).  The block-wide sum and scan that K1's hop and K2 rank
-// their children with are here too.
+// (PrefixInLanes).  The block-wide sum and scan that the hops (K1's and
+// K5's) and K2 rank their children with are here too, and the pieces the
+// two hops share: the lane group, a block's contiguous rows, a row's
+// counts over its slot groups, the group's child writes and the grid.
 //
 // For a row at `depth` of the (., k+1) int32 path matrix: read the last
 // vertex v, gather begin[v] and end[v, b] with b = k - depth - 1 (clipped
@@ -191,6 +193,110 @@ __device__ __forceinline__ void write_child(int* __restrict__ out,
                                             const int* prow, int k1,
                                             int col, int v) {
   for (int c = 0; c < k1; ++c) out[c] = c == col ? v : prow[c];
+}
+
+// ---------------------------------------------------------------------------
+// The hops' shared pieces (K1's hop in frontier.cu, K5's in
+// frontier_fused.cu): a count launch and a write launch over the same
+// grid, each block owning a contiguous range of rows.
+// ---------------------------------------------------------------------------
+
+// This thread's lane group: W lanes that serve one row.
+struct Group {
+  int sub;         // lane within the group
+  int leader;      // the group's first lane in the warp
+  unsigned mask;   // the group's lanes
+  unsigned below;  // the group's lanes below this one
+  int per_step;    // rows a block walks at once
+  int slot;        // this group's row within a step
+};
+
+__device__ __forceinline__ Group group_of(int width) {
+  const int lane = threadIdx.x & 31;
+  Group g;
+  g.sub = lane & (width - 1);
+  g.leader = lane - g.sub;
+  g.mask = width == 32 ? kFull : ((1u << width) - 1u) << g.leader;
+  g.below = ((1u << lane) - 1u) & g.mask;
+  g.per_step = blockDim.x / width;
+  g.slot = threadIdx.x / width;
+  return g;
+}
+
+// The contiguous rows [r0, r1) of this block: whole steps of per_step
+// rows, cut evenly across the grid.
+__device__ __forceinline__ int2 block_rows(int rows, int per_step) {
+  const long long steps = (rows + per_step - 1) / per_step;
+  const long long s0 = steps * blockIdx.x / gridDim.x;
+  const long long s1 = steps * (blockIdx.x + 1) / gridDim.x;
+  const long long r1 = s1 * per_step;
+  return make_int2(static_cast<int>(s0 * per_step),
+                   static_cast<int>(r1 < rows ? r1 : rows));
+}
+
+// One row's counts over all its slot groups: emit and continue children,
+// and whether any candidate survived and how many were duplicates.
+// `want_cont` false counts no continue child; `alive` is unaffected.
+struct RowCounts {
+  int emit = 0;
+  int cont = 0;
+  int dups = 0;
+  bool alive = false;
+
+  __device__ __forceinline__ void add(const Slot& s, const Group& g,
+                                      bool want_cont) {
+    emit += __popc(__ballot_sync(kFull, s.emit) & g.mask);
+    cont += __popc(__ballot_sync(kFull, s.cont && want_cont) & g.mask);
+    alive |= (__ballot_sync(kFull, s.emit || s.cont) & g.mask) != 0;
+    dups += __popc(__ballot_sync(kFull, s.in_range && s.dup) & g.mask);
+  }
+};
+
+// The children of one kind that a group's slot batch makes (`mine` on the
+// lanes of `mask`) at rows [o, o + popc(mask)) of `out`: the lanes stage
+// the children's vertices in `sv` (the group's W slots of shared memory)
+// and write the rows' k1 ints together, consecutive lanes on consecutive
+// ints.  Every lane of the warp calls it.
+__device__ __forceinline__ long long write_children(
+    int* __restrict__ out, long long o, unsigned mask, bool mine, int v,
+    const int* prow, int k1, int col, const Group& g, int width, int* sv) {
+  __syncwarp();  // the previous batch's readers are done with sv
+  if (mine) sv[__popc(mask & g.below)] = v;
+  __syncwarp();
+  const int total = __popc(mask) * k1;
+  int* dst = out + o * k1;
+  for (int e = g.sub; e < total; e += width) {
+    const int q = e / k1;
+    const int c = e - q * k1;
+    dst[e] = c == col ? sv[q] : prow[c];
+  }
+  return o + __popc(mask);
+}
+
+// W for a fan-out bound: max_deg rounded up to a power of two, at most 32.
+inline int group_width(int max_deg) {
+  int width = 1;
+  while (width < max_deg && width < 32) width *= 2;
+  return width;
+}
+
+// Blocks of `threads` for `rows` rows: no more than the steps of rows,
+// `per_sm` an SM, and `max_grid` (the block totals a hop's scratch holds).
+inline int hop_grid(int rows, int width, int threads, int per_sm,
+                    int max_grid) {
+  static int sms[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                             dev) != cudaSuccess)
+    sms[dev] = 1;
+  const int per_step = threads / width;
+  const long long steps = (static_cast<long long>(rows) + per_step - 1)
+                          / per_step;
+  long long g = static_cast<long long>(per_sm) * sms[dev];
+  if (g > max_grid) g = max_grid;
+  return static_cast<int>(steps < g ? steps : g);
 }
 
 }  // namespace frontier

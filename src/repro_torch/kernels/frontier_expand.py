@@ -48,10 +48,26 @@ members' arrays through an (m, 5) int64 table of pointers on the device
 (``fused_member_table``); the plain version builds ``repro``'s flattened
 ``(m·n,)`` / ``(m·mfm,)`` layout from them (``fused_flat_tables``).
 Counters come out per member, ``(m, 4)``.  ``frontier_fused_masks_table``
-launches the kernel on a table the caller already holds on the card (the
-fused expand copies it in with the packed rows, so a launch waits on no
-copy); ``frontier_fused_masks`` takes the members' arrays, as the tests
-and the plain version do.  ``fused_launches`` counts its launches.
+launches the kernel on a table the caller already holds on the card;
+``frontier_fused_masks`` takes the members' arrays, as the tests and the
+plain version do.
+
+``frontier_fused_hop`` is K5's hop entry, K1's hop for many queries: the
+same per-row work with the compaction, the child rows and the per-member
+counts in the kernel (a count and a write launch), on a member table
+already on the card (the fused expand copies it in with the packed rows,
+so a launch waits on no copy).  ``wantc`` (m,) int32 is 0 for a member on
+its last hop, which gets no continue rows and ``n_cont`` 0; its counters
+still come from the full continue mask.  It returns ``emit_rows`` and
+``cont_rows`` (rows·max_deg, k1max) int32, the children in flat row-major
+order with the first ``sum(n_emit)`` / ``sum(n_cont)`` rows defined, so
+each member's rows form one segment in member order, and ``head`` (6m,)
+int32 ``[n_emit (m) | n_cont (m) | counters (m×4)]`` for the host to
+read in one copy.  Its plain version, ``frontier_fused_hop_plain``, takes
+the members' arrays: the masks' plain version, ``compact`` and
+``children`` over the flat masks and per-member sums.
+``fused_launches`` counts every launch of K5 (either entry),
+``fused_hop_launches`` those of the hop entry.
 """
 from __future__ import annotations
 
@@ -68,9 +84,11 @@ PAD = -1
 launches: int = 0
 hop_launches: int = 0
 fused_launches: int = 0
+fused_hop_launches: int = 0
 
-# int32 slots of the hop's head, and the block totals its scratch holds
-# (kHead and kMaxGrid in csrc/frontier.cu)
+# int32 slots of K1's hop's head, and the block totals a hop's scratch
+# holds (kHead and kMaxGrid in csrc/frontier.cu; kMaxGrid in
+# csrc/frontier_fused.cu)
 HOP_HEAD = 8
 HOP_MAX_GRID = 1024
 
@@ -343,6 +361,38 @@ def frontier_fused_masks_plain(paths: torch.Tensor, rank: torch.Tensor,
             counters.to(torch.int32))
 
 
+def frontier_fused_hop_plain(paths: torch.Tensor, rank: torch.Tensor,
+                             tvec: torch.Tensor, depthv: torch.Tensor,
+                             wantc: torch.Tensor, begins, ends, dsts, *,
+                             max_deg: int
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """K5's hop in plain PyTorch (any device): ``frontier_fused_masks_plain``,
+    then ``compact`` and ``children`` over the flat masks (the continue
+    mask cleared on the rows of members whose ``wantc`` is 0) and each
+    member's children summed, as ``repro``'s ``ops.frontier_expand_fused``.
+    Returns ``(emit_rows, cont_rows, head)``, ``head`` (6m,) int32
+    ``[n_emit (m) | n_cont (m) | counters (m×4)]``."""
+    m = tvec.shape[0]
+    vnew, emit, cont, counters = frontier_fused_masks_plain(
+        paths, rank, tvec, depthv, begins, ends, dsts, max_deg=max_deg)
+    rk = rank.long()
+    rankflat = rk.repeat_interleave(max_deg)
+    depth_rows = depthv.long().index_select(0, rk)
+    flat_emit = emit.view(-1) != 0
+    flat_cont = (cont.view(-1) != 0) & (wantc != 0).index_select(0,
+                                                                 rankflat)
+    out, per_member = [], []
+    for flat in (flat_emit, flat_cont):
+        idx, _ = compact(flat)
+        out.append(children(paths, vnew.view(-1), idx, depth_rows, max_deg))
+        per_member.append(torch.zeros(m, dtype=torch.int32,
+                                      device=paths.device).scatter_add_(
+            0, rankflat, flat.to(torch.int32)))
+    head = torch.cat([*per_member, counters.view(-1)])
+    return out[0], out[1], head
+
+
 def _fused_lib() -> ctypes.CDLL:
     lib = _build.load("frontier_fused")
     fn = lib.frontier_fused_masks_launch
@@ -350,6 +400,10 @@ def _fused_lib() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        hop = lib.frontier_fused_hop_launch
+        hop.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        hop.restype = ctypes.c_int
     return lib
 
 
@@ -411,30 +465,38 @@ def fused_member_table(begins, ends, dsts, *, k1max: int, device
     return table
 
 
-# no CPU branch: only the kernel reads a table of device pointers, and
-# CPU callers take frontier_fused_masks, whose plain version needs none
+def _check_table(entry: str, paths: torch.Tensor,
+                 table: torch.Tensor) -> int:
+    """Raise unless ``paths`` is on the card and ``table`` is a contiguous
+    (m, 5) int64 member table beside it (64-bit device pointers, as
+    ``fused_member_table`` builds it); returns m."""
+    if not paths.is_cuda:
+        raise ValueError(f"{entry} runs on the card; CPU tensors take "
+                         f"frontier_fused_masks or ops.frontier_expand_fused")
+    if table.dim() != 2 or table.shape[1] != 5 \
+            or table.dtype != torch.int64 \
+            or table.device != paths.device or not table.is_contiguous():
+        raise ValueError(f"table must be a contiguous (m, 5) int64 tensor on "
+                         f"{paths.device}")
+    return table.shape[0]
+
+
+# no CPU branch in the two table entries: only the kernels read a table of
+# device pointers, and CPU callers take frontier_fused_masks or the fused
+# expand, whose plain versions need none
 def frontier_fused_masks_table(  # repro-torch-lint: disable=kernel-contract
         paths: torch.Tensor, rank: torch.Tensor, tvec: torch.Tensor,
         depthv: torch.Tensor, table: torch.Tensor, *, max_deg: int
         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One fused frontier hop on the card, on a member table already there:
-    ``table`` (m, 5) int64 on the rows' CUDA device, as
+    """One fused frontier hop's masks on the card, on a member table
+    already there: ``table`` (m, 5) int64 on the rows' CUDA device, as
     ``fused_member_table`` builds it (its arrays must outlive the launch).
-    Launches the kernel of ``csrc/frontier_fused.cu`` on the current
+    Launches the masks kernel of ``csrc/frontier_fused.cu`` on the current
     stream, which zeroes the counters itself, and raises if the launch
     fails.  No plain version reads a table of device pointers: CPU callers
     take ``frontier_fused_masks``."""
     global fused_launches
-    if not paths.is_cuda:
-        raise ValueError("frontier_fused_masks_table runs on the card; "
-                         "CPU tensors take frontier_fused_masks")
-    # the member table holds 64-bit device pointers
-    wide = table.dtype == torch.int64  # repro-torch-lint: disable=kernel-contract
-    if table.dim() != 2 or table.shape[1] != 5 or not wide \
-            or table.device != paths.device or not table.is_contiguous():
-        raise ValueError(f"table must be a contiguous (m, 5) int64 tensor on "
-                         f"{paths.device}")
-    m = table.shape[0]
+    m = _check_table("frontier_fused_masks_table", paths, table)
     _check_rows(paths, rank, tvec, depthv, m, max_deg)
     C, k1 = paths.shape
     # one allocation for the three masks: each tensor op costs host time
@@ -449,6 +511,49 @@ def frontier_fused_masks_table(  # repro-torch-lint: disable=kernel-contract
     _build.check(status, "frontier_fused_masks")
     fused_launches += 1
     return vnew, emit, cont, counters
+
+
+def frontier_fused_hop(  # repro-torch-lint: disable=kernel-contract
+        paths: torch.Tensor, rank: torch.Tensor, tvec: torch.Tensor,
+        depthv: torch.Tensor, wantc: torch.Tensor, table: torch.Tensor, *,
+        max_deg: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One fused frontier hop with its compaction on the card:
+    ``(emit_rows, cont_rows, head)`` (see the module docstring), on a
+    member table already there, as ``frontier_fused_masks_table`` takes
+    it.
+
+    Launches the hop of ``csrc/frontier_fused.cu`` (a count and a write
+    launch, the head zeroed on the stream before them) on the current
+    stream and raises if it fails; the head, the kernels' scratch and both
+    row blocks are views of one allocation, and rows past the children are
+    left unwritten.  CPU callers take ``frontier_fused_hop_plain``.
+    """
+    global fused_launches, fused_hop_launches
+    m = _check_table("frontier_fused_hop", paths, table)
+    _check_rows(paths, rank, tvec, depthv, m, max_deg)
+    if wantc.shape != (m,) or wantc.dtype != torch.int32 \
+            or wantc.device != paths.device or not wantc.is_contiguous():
+        raise ValueError(f"wantc must be a contiguous ({m},) int32 tensor on "
+                         f"{paths.device}")
+    C, k1 = paths.shape
+    cap = C * max_deg
+    # the int4 block totals first (16-byte aligned), then the head
+    scratch = 4 * HOP_MAX_GRID
+    buf = torch.empty(scratch + 6 * m + 2 * cap * k1, dtype=torch.int32,
+                      device=paths.device)
+    head = buf[scratch:scratch + 6 * m]
+    rows = buf[scratch + 6 * m:]
+    emit_rows = rows[:cap * k1].view(cap, k1)
+    cont_rows = rows[cap * k1:].view(cap, k1)
+    status = _fused_lib().frontier_fused_hop_launch(
+        paths.data_ptr(), rank.data_ptr(), tvec.data_ptr(),
+        depthv.data_ptr(), wantc.data_ptr(), table.data_ptr(),
+        head.data_ptr(), buf.data_ptr(), emit_rows.data_ptr(),
+        cont_rows.data_ptr(), C, k1, max_deg, m, _build.stream(paths.device))
+    _build.check(status, "frontier_fused_hop")
+    fused_launches += 1
+    fused_hop_launches += 1
+    return emit_rows, cont_rows, head
 
 
 def frontier_fused_masks(paths: torch.Tensor, rank: torch.Tensor,

@@ -12,9 +12,12 @@ work deque (K2) and the dense BFS (DESIGN.md §9).
   one copy per block of rows.
 * ``frontier_expand_fused`` — one fused hop for chunks of many queries
   (K5), the counterpart of ``repro``'s ``ops.frontier_expand_fused``:
-  the same padding and flat compaction, with per-row depths, so each
-  member's emit and continue rows come out as one contiguous segment in
-  its solo emission order.
+  the flat compaction with per-row depths, so each member's emit and
+  continue rows come out as one contiguous segment in its solo emission
+  order.  On the card K5's hop entry does the masks, the compaction and
+  the per-member counts in the kernel, on one pinned copy in; on the CPU
+  the rows are padded to a power of two, as ``repro`` pads them, and take
+  the plain hop.
 * ``frontier_deque_round`` — K2, the counterpart of ``repro``'s
   ``ops._deque_round_jit``: up to ``round_pops`` in-arena pop → K1 →
   compact → push iterations over a device arena, with one host sync per
@@ -43,8 +46,8 @@ import torch
 
 from ..core import trace
 from . import _build
-from .frontier_expand import (PAD, children, compact, frontier_fused_masks,
-                              frontier_fused_masks_table, frontier_hop,
+from .frontier_expand import (PAD, children, compact, frontier_fused_hop,
+                              frontier_fused_hop_plain, frontier_hop,
                               frontier_masks_plain, fused_member_table)
 from .semiring_spmm import bfs_dense  # noqa: F401  (re-exported)
 
@@ -172,9 +175,9 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
     past a member's own k+1 stay PAD); ``rank`` (rows,) tags each row's
     member; ``tvec`` / ``depthv`` / ``wantc`` (m,) are each member's
     target, chunk depth and ``want_cont`` (False on its last hop); each
-    member brings its index's device ``begin`` / ``end`` / ``dst``.  Rows
-    pad to a power of two (at least 8) with PAD rows of rank 0.
-    ``member_table`` is the members' (m, 5) table of K5 as
+    member brings its index's device ``begin`` / ``end`` / ``dst``.  On
+    the CPU the rows pad to a power of two (at least 8) with PAD rows of
+    rank 0.  ``member_table`` is the members' (m, 5) table of K5 as
     ``fused_member_table`` builds it, where the caller keeps one (each
     member's row stays valid while its arrays live); without it the table
     is built here.  The CPU route does not read it.
@@ -183,15 +186,17 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
     the device: the compacted emit and continue rows in flat (row-major)
     order, so member i's rows form one segment that starts at the
     exclusive cumsum of ``n_emit_m`` / ``n_cont_m``, and the (m, 4)
-    per-member Fig.-6 counters.  The ``wantc`` suppression happens after
-    the kernel, which always computes the full continue mask, so the
-    counters equal the single-query kernel's.
+    per-member Fig.-6 counters.  ``n_emit_m``, ``n_cont_m`` and
+    ``counters`` are consecutive views of one (6m,) int32 head, so one
+    copy brings all three back.  The ``wantc`` suppression clears only
+    the continue rows: the counters come from the full continue mask, so
+    they equal the single-query kernel's.
 
     With the recorder of ``core.trace`` on, the call is a
     ``k5.dispatch`` span with children ``k5.stage`` (the host buffer and
-    the copy in) and ``k5.launch`` (the masks kernel, the compaction,
-    ``children`` and the per-member counts), and it counts
-    ``k5.dispatches``, ``k5.rows`` and ``k5.members``.
+    the copy in) and ``k5.launch`` (the hop: on the card a memset and
+    K5's count and write launches), and it counts ``k5.dispatches``,
+    ``k5.rows`` and ``k5.members``.
     """
     global _dispatch_count
     with trace.span("k5.dispatch"):
@@ -206,9 +211,9 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
         trace.count("k5.dispatches")
         trace.count("k5.rows", rows)
         trace.count("k5.members", m)
-        C = _next_pow2(max(rows, 8))
         dev = begins[0].device
         on_card = dev.type == "cuda"
+        C = rows if on_card else _next_pow2(max(rows, 8))
         with trace.span("k5.stage"):
             # one host buffer, one copy: on the card the int64 member
             # table of K5 first, then the int32 [paths | rank | tvec |
@@ -223,11 +228,11 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
                                                       k1max=k1, device=dev)
                 host.numpy()[:n_tab] = member_table.reshape(-1)
             buf = host.numpy()[n_tab:].view(np.int32)
-            buf[:C * k1] = PAD
             buf[:rows * k1] = paths.reshape(-1)
+            buf[rows * k1:C * k1] = PAD
             o = C * k1
-            buf[o:o + C] = 0
             buf[o:o + rows] = rank
+            buf[o + rows:o + C] = 0
             o += C
             buf[o:o + m] = tvec
             buf[o + m:o + 2 * m] = depthv
@@ -239,31 +244,17 @@ def frontier_expand_fused(paths: np.ndarray, rank: np.ndarray,
             rk = d32[C * k1:o]
             tv = d32[o:o + m]
             dv = d32[o + m:o + 2 * m]
-            wc = d32[o + 2 * m:o + 3 * m] != 0
+            wc = d32[o + 2 * m:o + 3 * m]
             md = _next_pow2(max_deg)
             if on_card:
-                vnew, emit, cont, counters = frontier_fused_masks_table(
-                    p, rk, tv, dv, dbuf[:n_tab].view(m, 5), max_deg=md)
+                emit_rows, cont_rows, head = frontier_fused_hop(
+                    p, rk, tv, dv, wc, dbuf[:n_tab].view(m, 5), max_deg=md)
             else:
-                vnew, emit, cont, counters = frontier_fused_masks(
-                    p, rk, tv, dv, begins, ends, dsts, max_deg=md)
-            vflat = vnew.view(-1)
-            rankflat = rk.long().repeat_interleave(md)
-            depth_rows = dv.long().index_select(0, rk.long())
-
-            def per_member(flat: torch.Tensor) -> torch.Tensor:
-                out = torch.zeros(m, dtype=torch.int32, device=p.device)
-                return out.scatter_add_(0, rankflat, flat.to(torch.int32))
-
-            flat_emit = emit.view(-1) != 0
-            eidx, _ = compact(flat_emit)
-            emit_rows = children(p, vflat, eidx, depth_rows, md)
-            flat_cont = (cont.view(-1) != 0) & wc.index_select(0, rankflat)
-            cidx, _ = compact(flat_cont)
-            cont_rows = children(p, vflat, cidx, depth_rows, md)
-            n_emit_m, n_cont_m = per_member(flat_emit), per_member(flat_cont)
+                emit_rows, cont_rows, head = frontier_fused_hop_plain(
+                    p, rk, tv, dv, wc, begins, ends, dsts, max_deg=md)
         _dispatch_count += 1
-        return emit_rows, cont_rows, n_emit_m, n_cont_m, counters
+        return (emit_rows, cont_rows, head[:m], head[m:2 * m],
+                head[2 * m:].view(m, 4))
 
 
 # ---------------------------------------------------------------------------

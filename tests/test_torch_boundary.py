@@ -149,7 +149,8 @@ def test_cpu_tensors_take_the_plain_versions():
     assert kernels.launch_counts() == {k: 0 for k in kernels.launch_counts()}
     assert set(kernels.launch_counts()) == {
         "frontier_masks", "frontier_hop", "frontier_fused_masks",
-        "frontier_deque_round", "counting_spmm", "minplus_spmv", "bfs_dense",
+        "frontier_fused_hop", "frontier_deque_round", "counting_spmm",
+        "minplus_spmv", "bfs_dense",
         "flash_attention", "flash_attention_sm90", "decode_attention"}
     assert _build._loaded == loaded        # nothing was built or loaded
     with pytest.raises(TypeError):

@@ -627,6 +627,126 @@ def test_cuda_frontier_fused_masks_table_repeat_and_pad_rows(cuda):
     assert fe.fused_launches == before + 2
 
 
+def _fused_hop_inputs(dev, rows, m, max_deg, seed=0):
+    """Packed rows of ``m`` members over synthetic indexes whose fan-out
+    reaches ``max_deg``, on ``dev``: mixed k and depths, prefixes drawn
+    from few vertices (candidates repeat them), rows of zero fan-out, a
+    t that many candidates hit, PAD rows among a member's rows and (from
+    7 rows on) two PAD rows of rank 0 at the end, and the last of two or
+    more members on its last hop (depth k - 1, ``wantc`` 0).  Returns
+    ``(paths, rank, tvec, depthv, wantc, begins, ends, dsts)`` and the
+    pow2 fan-out bound."""
+    rng = np.random.default_rng(seed + rows + 7 * m + 31 * max_deg)
+    n = 300
+    ks = [int(rng.integers(3, 7)) for _ in range(m)]
+    k1max = max(ks) + 1
+    begins, ends, dsts = [], [], []
+    for k in ks:
+        deg = rng.integers(0, max_deg + 1, n)
+        deg[:2] = (max_deg, 0)
+        b = np.concatenate([[0], np.cumsum(deg)[:-1]])
+        budget = np.minimum(deg[:, None],
+                            np.arange(1, k + 2)[None, :] * -(-max_deg // 2))
+        begins.append(b.astype(np.int32))
+        ends.append((b[:, None] + budget).astype(np.int32))
+        dsts.append(rng.integers(0, 24, max(int(deg.sum()), 1))
+                    .astype(np.int32))
+    depthv = np.array([rng.integers(0, k - 1) for k in ks], np.int32)
+    wantc = np.ones(m, np.int32)
+    if m > 1:
+        depthv[-1] = ks[-1] - 1
+        wantc[-1] = 0
+    tvec = rng.integers(0, 24, m).astype(np.int32)
+    tail = 2 if rows >= 7 else 0
+    rank = np.zeros(rows, np.int32)
+    rank[:rows - tail] = np.sort(rng.integers(0, m, rows - tail))
+    paths = np.full((rows, k1max), PAD, np.int32)
+    for r in range(rows - tail):
+        d = depthv[rank[r]]
+        paths[r, :d + 1] = rng.integers(0, 24, d + 1)
+        paths[r, d] = rng.integers(0, n)
+    paths[0, depthv[rank[0]]] = 0                     # the widest row
+    paths[rng.random(rows) < 0.05] = PAD
+    args = (torch.from_numpy(paths).to(dev), torch.from_numpy(rank).to(dev),
+            torch.from_numpy(tvec).to(dev), torch.from_numpy(depthv).to(dev),
+            torch.from_numpy(wantc).to(dev),
+            [torch.from_numpy(x).to(dev) for x in begins],
+            [torch.from_numpy(x).to(dev) for x in ends],
+            [torch.from_numpy(x).to(dev) for x in dsts])
+    return args, _next_pow2(max_deg)
+
+
+def _fused_hop_equal(got, want, m):
+    """K5's hop against its plain version: the head (per-member child
+    counts and counters) and the rows the children fill in each block."""
+    ge, gc, gh = got
+    we, wc, wh = want
+    assert torch.equal(gh.cpu(), wh.cpu())
+    ne, nc = int(wh[:m].sum()), int(wh[m:2 * m].sum())
+    assert torch.equal(ge[:ne].cpu(), we[:ne].cpu())
+    assert torch.equal(gc[:nc].cpu(), wc[:nc].cpu())
+    return ne, nc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 1000, 17000])
+@pytest.mark.parametrize("m", [1, 3, 64])
+@pytest.mark.parametrize("max_deg", [1, 4, 16, 32, 64])
+def test_cuda_frontier_fused_hop_equals_plain(cuda, rows, m, max_deg):
+    """K5's hop entry against ``frontier_fused_hop_plain`` at rows that are
+    not a multiple of a block's step, at every group width, with a
+    member on its last hop and PAD rows; the member table is reused by a
+    second call (the launch zeroes the head itself)."""
+    args, md = _fused_hop_inputs(cuda, rows, m, max_deg)
+    p, rk, tv, dv, wc, begins, ends, dsts = args
+    table = torch.from_numpy(fe.fused_member_table(
+        begins, ends, dsts, k1max=p.shape[1], device=cuda)).to(cuda)
+    want = fe.frontier_fused_hop_plain(*args, max_deg=md)
+    before = (fe.fused_launches, fe.fused_hop_launches)
+    for _ in range(2):
+        got = fe.frontier_fused_hop(p, rk, tv, dv, wc, table, max_deg=md)
+        torch.cuda.synchronize()
+        ne, nc = _fused_hop_equal(got, want, m)
+        del got
+    assert (fe.fused_launches, fe.fused_hop_launches) == \
+        (before[0] + 2, before[1] + 2)
+    if m > 1:
+        assert int(want[2][2 * m - 1]) == 0          # wantc 0: no cont rows
+    if rows >= 1000:
+        assert ne + nc > 0 and int(want[2][2 * m:].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["count_only", "first_n"])
+def test_cuda_fused_enumerate_one_hop_launch_per_dispatch(cuda, leg):
+    """``enumerate_fused_device`` on the card equals solo host runs of the
+    same indexes, with one launch of K5's hop entry per dispatch and K5's
+    launch count rising by the same number."""
+    from repro_torch.core import fused as tfused
+    g = erdos_renyi(400, 10.0, seed=5)
+    qs = [(0, 399, 6), (1, 398, 6), (2, 397, 5), (3, 396, 6), (4, 395, 4),
+          (5, 394, 6)]
+    idxs = [build_index(g, s, t, k, device=cuda) for s, t, k in qs]
+    kw = {"count_only": {"count_only": True},
+          "first_n": {"first_n": 1000}}[leg]
+    before = (ops.device_dispatch_count(), fe.fused_hop_launches,
+              fe.fused_launches)
+    got = tfused.enumerate_fused_device(idxs, chunk_size=256, **kw)
+    dispatches = ops.device_dispatch_count() - before[0]
+    assert dispatches >= 1
+    assert fe.fused_hop_launches - before[1] == dispatches
+    assert fe.fused_launches - before[2] == dispatches
+    trimmed = 0
+    for idx, res in zip(idxs, got):
+        want = enumerate_paths_idx(idx, backend="host", chunk_size=256,
+                                   device=cuda, **kw)
+        assert (res.count, res.exhausted) == (want.count, want.exhausted)
+        assert res.stats == want.stats
+        assert res.as_tuples() == want.as_tuples()
+        trimmed += not want.exhausted
+    assert leg == "count_only" or trimmed >= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sharing", ["auto", "off"])
 def test_cuda_fused_batch_equals_solo(cuda, sharing):
@@ -1709,6 +1829,7 @@ def test_launch_counts_read_every_counter_after_reexports(monkeypatch):
     counters = {"frontier_masks": (fe, "launches"),
                 "frontier_hop": (fe, "hop_launches"),
                 "frontier_fused_masks": (fe, "fused_launches"),
+                "frontier_fused_hop": (fe, "fused_hop_launches"),
                 "frontier_deque_round": (ops, "deque_rounds"),
                 "counting_spmm": (sr, "counting_launches"),
                 "minplus_spmv": (sr, "minplus_launches"),

@@ -11,18 +11,20 @@ wrappers:
 
 * K3, ``counting_spmm``, at the walk-count DP's shape: a (2048, 2048)
   float32 matrix and one column;
-* K5, ``frontier_fused_masks_table`` (what the fused expand launches) and
-  the list-taking ``frontier_fused_masks``, at ``--rows`` packed rows of
+* K5, its hop entry ``frontier_fused_hop`` (what the fused expand
+  launches), the masks entry ``frontier_fused_masks_table`` and the
+  list-taking ``frontier_fused_masks``, at ``--rows`` packed rows of
   ``--members`` queries with ``--max-deg`` candidate slots and k = 8 (the
   defaults: the real rows, members and fan-out of the largest dispatch of
   ``chip_smoke.py``'s fused leg, whose K5 ``kernel`` line prints that
-  shape; the fused expand pads the rows to a power of two); beside them
+  shape; the fused expand hands the card the rows unpadded); beside them
+  the hop's ctypes launch alone (the memset and its two launches),
   the member table's copy to the card from pinned memory without a
   stream sync (as the list-taking entry makes it; the fused expand puts
   it in the one copy it makes anyway) and as a pageable
   ``torch.tensor(...).to`` copy, which syncs the stream, and the whole
-  ``ops.frontier_expand_fused`` call with the members' table rows stacked
-  per call, as the fused driver passes them;
+  ``ops.frontier_expand_fused`` call on the same rows with the members'
+  table rows stacked per call, as the fused driver passes them;
 * K1, ``frontier_masks`` and the hop entry ``frontier_hop``, on the same
   rows as one query; beside them the outputs the masks wrapper allocated
   before it made one allocation (three ``torch.empty`` and a
@@ -125,6 +127,7 @@ def main() -> None:
     paths, rank, tvec, depthv, begins, ends, dsts = frontier_inputs(
         torch, np, dev, rows, m, md)
     wantc = np.ones(m, bool)
+    wc = torch.ones(m, dtype=torch.int32, device=dev)
     p = torch.from_numpy(paths).to(dev)
     rk = torch.from_numpy(rank).to(dev)
     tv = torch.from_numpy(tvec).to(dev)
@@ -142,6 +145,14 @@ def main() -> None:
     fptrs = (p.data_ptr(), rk.data_ptr(), tv.data_ptr(), dv.data_ptr(),
              table.data_ptr(), vnew.data_ptr(), emit.data_ptr(),
              cont.data_ptr(), counters.data_ptr())
+    # the hop's head, block totals and row blocks, allocated once
+    hop_buf = torch.empty(4 * fe.HOP_MAX_GRID + 6 * m + 2 * rows * md * k1,
+                          dtype=torch.int32, device=dev)
+    o = 4 * fe.HOP_MAX_GRID + 6 * m
+    hptrs = (p.data_ptr(), rk.data_ptr(), tv.data_ptr(), dv.data_ptr(),
+             wc.data_ptr(), table.data_ptr(),
+             hop_buf[4 * fe.HOP_MAX_GRID:].data_ptr(), hop_buf.data_ptr(),
+             hop_buf[o:].data_ptr(), hop_buf[o + rows * md * k1:].data_ptr())
 
     def outputs(zeros):
         return ([torch.empty((rows, md), dtype=torch.int32, device=dev)
@@ -151,6 +162,12 @@ def main() -> None:
     # reps of 300 for calls that launch: the card's queue never fills
     out.update({
         "k5_shape": {"rows": rows, "members": m, "k1": k1, "max_deg": md},
+        "k5_hop_entry": host_us(
+            torch, lambda: fe.frontier_fused_hop(
+                p, rk, tv, dv, wc, table, max_deg=md), 300),
+        "k5_hop_ctypes_launch_only": host_us(
+            torch, lambda: flib.frontier_fused_hop_launch(
+                *hptrs, rows, k1, md, m, raw), 300),
         "k5_table_entry": host_us(
             torch, lambda: fe.frontier_fused_masks_table(
                 p, rk, tv, dv, table, max_deg=md), 300),
