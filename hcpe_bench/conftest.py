@@ -28,7 +28,8 @@ RENAME = {f"{REAL}.{mix}": [c for c, (_, m) in CELLS.items() if m == mix]
 @pytest.fixture(scope="session")
 def tiny(tmp_path_factory):
     """``(spec, base)``: a BENCHMARK.json-shaped dict over the tiny
-    cells and the folder that holds their data files."""
+    cells and the folder that holds their data files and a copy of the
+    metric readers."""
     base = tmp_path_factory.mktemp("tiny_cells")
     for sub in ("configs", "traffic", "workloads"):
         (base / sub).mkdir()
@@ -41,6 +42,8 @@ def tiny(tmp_path_factory):
     for mix in {mix for _, mix in CELLS.values()}:
         shutil.copy(HERE / "traffic" / f"{mix}.json",
                     base / "traffic" / f"{mix}.json")
+    shutil.copytree(HERE / "metrics", base / "metrics",
+                    ignore=shutil.ignore_patterns("__pycache__"))
     (base / "workloads" / "tiny-k3.open-first1000.json").write_text(
         json.dumps({"traffic": {"rate_per_s": 200.0}}))
     spec = json.loads((HERE.parent / "BENCHMARK.json").read_text())

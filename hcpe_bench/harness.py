@@ -12,6 +12,12 @@ harness finds
 * each metric's reader in ``metrics/<metric>.py``: a ``read(ctx)``
   that returns a number, or None when the run gave it nothing to read.
 
+A ``--trace 1`` run switches the program's own recorder
+(``repro_torch.core.trace``) on from its start and puts its set-up's
+and its window's spans and counters, and the device trace read against
+them, in the context each reader gets (``program_trace``); a
+``--trace 0`` run never touches the recorder.
+
 The program under test is the PyTorch port, ``repro_torch``; nothing
 here imports ``repro`` or JAX.  ``run_cell`` is the whole run and
 returns the result line as a dict; ``run.py`` is its command line,
@@ -34,7 +40,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from . import checks, graphgen, loops, stats, tracing
+from . import checks, graphgen, loops, program_trace, stats, tracing
 from .reference import paths as ref
 
 HERE = Path(__file__).resolve().parent
@@ -91,9 +97,10 @@ def find_cell(name: str, spec: Optional[dict] = None,
                 per_layer=[m for m in spec["per_layer"] if reports(m)])
 
 
-def metric_reader(name: str) -> Callable[[dict], Optional[float]]:
-    """``read`` of ``metrics/<name>.py``."""
-    path = HERE / "metrics" / f"{name}.py"
+def metric_reader(name: str, base: Path = HERE
+                  ) -> Callable[[dict], Optional[float]]:
+    """``read`` of ``metrics/<name>.py`` under ``base``."""
+    path = base / "metrics" / f"{name}.py"
     spec = importlib.util.spec_from_file_location(
         f"hcpe_bench_metric_{name.replace('.', '_').replace('-', '_')}",
         path)
@@ -120,13 +127,9 @@ def use_checkout_program() -> None:
 
 
 def port_modules() -> Dict[str, object]:
-    """The program's modules the harness drives or wraps."""
+    """The program's modules the harness drives."""
     names = {"batch": "repro_torch.core.batch",
              "graph": "repro_torch.core.graph",
-             "planner": "repro_torch.core.planner",
-             "sharing": "repro_torch.core.sharing",
-             "fused": "repro_torch.core.fused",
-             "ops": "repro_torch.kernels.ops",
              "build": "repro_torch.kernels._build",
              "serving": "repro_torch.serving"}
     return {key: importlib.import_module(mod) for key, mod in names.items()}
@@ -167,14 +170,37 @@ def _engine_dists(mods, engine, pool, k):
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
              device: str = "cuda", started: Optional[float] = None,
              spec: Optional[dict] = None, base: Path = HERE,
-             log=None) -> dict:
+             log=None, keep: Optional[dict] = None) -> dict:
     """Run one cell once and return its result line (a dict).
 
     ``started`` is the process's start on ``time.perf_counter``'s clock
     (the set-up time counts from it); ``spec`` and ``base`` stand in for
     ``BENCHMARK.json`` and this folder's data files (the tests' small
-    cells); ``log`` receives progress lines.
+    cells); ``log`` receives progress lines; ``keep``, where given,
+    receives the run's context.  With ``trace`` the program's recorder
+    is on from here until the window closes, and off again when the run
+    ends, also when it raises.
     """
+    rec = None
+    if trace:
+        rec = importlib.import_module("repro_torch.core.trace")
+        rec.drain()
+        rec.enable()
+    try:
+        return _run(name, seed, seconds, rec, device, started, spec, base,
+                    log, keep)
+    finally:
+        if rec is not None:
+            rec.disable()
+            rec.drain()
+
+
+def _run(name: str, seed: int, seconds: float, rec, device: str,
+         started: Optional[float], spec: Optional[dict], base: Path, log,
+         keep: Optional[dict]) -> dict:
+    """``run_cell``'s body; ``rec`` is the program's recorder, switched
+    on, in a traced run, and None otherwise."""
+    trace = rec is not None
     started = time.perf_counter() if started is None else started
     log = log or (lambda msg: None)
     cell = find_cell(name, spec, base)
@@ -217,10 +243,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     _sync(dev)
     log(f"warm_pool_s {time.perf_counter() - t0:.3f}")
 
-    spans = recorder = prof = None
+    counted = prof = None
     if trace:
-        spans = tracing.Spans(engine, mods)
-        recorder = tracing.K5Recorder(mods["ops"], spans.intervals)
+        counted = tracing.BatchCounters(engine)
     rng = np.random.default_rng([int(seed), 1])
     req_cls = serving.PathQueryRequest
     ctx: dict = {"params": params}
@@ -230,17 +255,20 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         ctx["setup_s"] = time.perf_counter() - started
         nonlocal prof
         if trace:
+            ctx["program_setup"] = rec.drain()
             acts = [torch.profiler.ProfilerActivity.CPU]
             if dev.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             prof = torch.profiler.profile(activities=acts)
             prof.__enter__()
-            spans.recording = recorder.recording = True
+            counted.recording = True
 
     def close_window() -> None:
         _sync(dev)
         if trace:
-            spans.recording = recorder.recording = False
+            counted.recording = False
+            rec.disable()
+            ctx["program"] = rec.drain()
             prof.__exit__(None, None, None)
 
     if params["loop"] == "closed":
@@ -285,13 +313,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     engine_dists = _engine_dists(mods, engine, pool, k)
     if trace:
-        ctx["batches"] = spans.batches
-        ctx["span_s"] = dict(spans.totals)
-        ctx["k5_bytes"] = recorder.needed_bytes()
-        ctx["trace"] = tracing.read_trace(prof, spans.intervals)
-        spans.remove()
-        recorder.remove()
-        del prof, spans, recorder
+        t0 = time.perf_counter()
+        ctx["batches"] = counted.batches
+        ctx["program_device"] = program_trace.read_device(
+            prof, ctx["program"].spans,
+            program_trace.copy_bytes(prof) if dev.type == "cuda" else None)
+        if ctx["program_device"] is None:
+            raise RuntimeError("the trace holds no window span")
+        counted.remove()
+        del prof, counted
+        log(f"trace_read_s {time.perf_counter() - t0:.3f}")
     del server, engine, graph
     gc.collect()
     if dev.type == "cuda":
@@ -313,7 +344,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
 
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
-        value = metric_reader(m["name"])(ctx)
+        value = metric_reader(m["name"], base)(ctx)
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     info = {"platform": "gpu" if dev.type == "cuda" else "cpu",
@@ -327,12 +358,16 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
               "failed": stats.count_failed(records),
               "metrics": metrics, "device": info}
     if trace:
-        tr = ctx["trace"]
-        info.update(busy_s=tr["busy_s"], window_s=tr["window_s"])
-        result["breakdown"] = {"device_ops": tr["device_ops"],
-                               "idle_gaps": tr["idle_gaps"]}
+        dv = ctx["program_device"]
+        info.update(busy_s=dv["busy_s"], window_s=dv["window_s"])
+        result["breakdown"] = {
+            "device_ops": dv["device_ops"],
+            "idle_gaps": (program_trace.program_idle_gaps(ctx) or [])[:10]}
+        result["program"] = program_trace.program_block(ctx)
     result["compile_s"] = compile_s
     result["checks"] = {key: {"value": v, "limit": checks.LIMITS[key]}
                         for key, v in numbers.items()}
+    if keep is not None:
+        keep.update(ctx)
     return result
 

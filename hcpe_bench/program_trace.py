@@ -1,18 +1,14 @@
 """The program's own spans and counters (``repro_torch.core.trace``) read
 beside the device trace of a ``--trace 1`` run.
 
-``harness.run_cell`` does not switch the program's recorder on.  Until it
-does, ``run_cell`` here drives one traced run through it with the
-recorder on from the warm-up: it drains the recorder once when the
-window's loop starts (the set-up's spans, ``ctx["program_setup"]``) and
-once when the harness reads the device trace (the window's,
-``ctx["program"]``), and reads the profiler's events beside the
-window's spans (``read_device``, ``ctx["program_device"]``).  It
-returns the harness's result line with ``program_idle_gaps``, the five
-metrics of ``METRICS`` and a ``program`` block added:
+``harness.run_cell`` switches the program's recorder on for a traced
+run and puts in the run's context what the metric readers read:
 
-    python3 -m hcpe_bench.program_trace --workload <cell> --seed <n> \
-        --seconds <s>
+* ``program_setup``: the spans and counters of the set-up (the warm-up
+  included), drained when the window starts;
+* ``program``: the window's, drained when it closes;
+* ``program_device``: ``read_device`` over the profiler's events and
+  the window's spans.
 
 What is read:
 
@@ -21,33 +17,40 @@ What is read:
   its midpoint, or ``OUTSIDE``;
 * each device operation tied to the innermost program span that holds
   the host start of the runtime call (``cudaLaunchKernel``,
-  ``cudaMemcpyAsync``, ...) with the operation's correlation id.
+  ``cudaMemcpyAsync``, ...) with the operation's correlation id, and
+  each device copy's bytes.
 
+A new per-layer metric over a program span is a ``metrics/<name>.py``
+whose ``read(ctx)`` calls these functions; the harness needs no edit.
 Each metric function takes the run's context and returns a number, or
 None when the run gave it nothing to read (no program spans, or no
 device operation on a CPU run).
 """
 from __future__ import annotations
 
-import argparse
 import collections
 import heapq
 import json
 import os
-import sys
+import tempfile
 import time
-from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from . import harness, loops, tracing
+from .tracing import WINDOW_SPAN
 
 OUTSIDE = "outside the program's spans"
 # the program spans whose subtrees are the fused driver's and K5's
 FUSED_SPAN = "enumeration.fused"
 K5_SPAN = "k5.dispatch"
+# the span of the fused enumeration's copies back of each dispatch's head
+# and child rows
+READBACK_SPAN = "fused.readback"
+# the bytes K5's hop reads a member of a dispatch: its target, depth and
+# wantc (int32 each) and its row of the member table (five int64)
+MEMBER_BYTES = 12 + 40
 
 
 # ---------------------------------------------------------------------------
@@ -123,38 +126,78 @@ def under(spans, name: str) -> set:
 # the device trace
 # ---------------------------------------------------------------------------
 
-def read_device(prof, spans) -> Optional[dict]:
-    """The window's device operations and idle gaps against the
-    program's spans: ``window_s`` and ``busy_s`` as
-    ``tracing.read_trace`` has them, ``idle_s`` (idle seconds by the id
-    of the innermost span at each gap's midpoint, None for none) and
-    ``device_s`` (device seconds, clipped to the window, by the id of
-    the span that holds the operation's runtime call, None for none).
+def _ns(ev, what: str) -> int:
+    get = getattr(ev, f"{what}_ns", None)
+    if get is not None:
+        return int(get())
+    return int(getattr(ev, f"{what}_us")() * 1000)
+
+
+def copy_bytes(prof) -> Dict[int, int]:
+    """Bytes of each device copy by its correlation id.  The profiler's
+    events carry no byte counts; its exported trace does, so the trace
+    is written to a temporary file, read and removed."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    finally:
+        os.remove(path)
+    out = {}
+    for ev in events:
+        args = ev.get("args") or {}
+        if ev.get("cat") == "gpu_memcpy" and "bytes" in args:
+            out[int(args["correlation"])] = int(args["bytes"])
+    return out
+
+
+def read_device(prof, spans, nbytes: Optional[Dict[int, int]] = None,
+                top: int = 10) -> Optional[dict]:
+    """The window's device operations against the program's spans:
+
+    * ``window_s``: the ``bench.window`` range;
+    * ``busy_s``: the union of device-operation intervals inside it;
+    * ``kernel_s``: device seconds by operation name, and
+      ``device_ops``, the ``top`` largest of them;
+    * ``idle_s``: idle seconds by the id of the innermost span at each
+      gap's midpoint, None for none;
+    * ``device_s``: device seconds, clipped to the window, by the id of
+      the span that holds the operation's runtime call, None for none;
+    * ``copy_bytes``: the bytes of the device copies (``nbytes``, by
+      correlation id) by the id of the span that holds their call.
+
     None when the trace holds no window span."""
+    nbytes = nbytes or {}
     win = None
-    ops: List[Tuple[int, int, int]] = []
+    ops: List[Tuple[int, int, int, str]] = []
     calls: Dict[int, int] = {}
     for ev in prof.profiler.kineto_results.events():
         name = ev.name()
         on_device = ev.device_type() == torch.autograd.DeviceType.CUDA
-        if name in tracing.SPAN_NAMES or name == tracing.WINDOW_SPAN:
-            if not on_device and name == tracing.WINDOW_SPAN:
-                start = tracing._ns(ev, "start")
-                win = (start, start + tracing._ns(ev, "duration"))
+        if name == WINDOW_SPAN:
+            # a record_function range has a device-side twin in the
+            # trace; only the host side is the window
+            if not on_device:
+                start = _ns(ev, "start")
+                win = (start, start + _ns(ev, "duration"))
             continue
         if on_device:
-            start = tracing._ns(ev, "start")
-            ops.append((start, start + tracing._ns(ev, "duration"),
-                        ev.correlation_id()))
+            start = _ns(ev, "start")
+            ops.append((start, start + _ns(ev, "duration"),
+                        ev.correlation_id(), name))
         elif name.startswith("cu") and ev.correlation_id() > 0:
-            calls[ev.correlation_id()] = tracing._ns(ev, "start")
+            calls[ev.correlation_id()] = _ns(ev, "start")
     if win is None:
         return None
     lo, hi = win
-    clipped = [(max(a, lo), min(b, hi), c) for a, b, c in ops]
-    clipped = [(a, b, c) for a, b, c in clipped if b > a]
+    clipped = [(max(a, lo), min(b, hi), c, n) for a, b, c, n in ops]
+    clipped = [op for op in clipped if op[1] > op[0]]
+    by_name: Dict[str, float] = collections.defaultdict(float)
     gaps, cur, busy = [], lo, 0
-    for a, b, _c in sorted(clipped):
+    for a, b, _c, name in sorted(clipped):
+        by_name[name] += (b - a) / 1e9
         if a > cur:
             gaps.append((cur, a))
         if b > cur:
@@ -167,12 +210,20 @@ def read_device(prof, spans) -> Optional[dict]:
                                            [(a + b) // 2 for a, b in gaps])):
         idle[sid] += (b - a) / 1e9
     device: Dict[Optional[int], float] = collections.defaultdict(float)
+    copied: Dict[Optional[int], int] = collections.defaultdict(int)
     # an operation with no runtime call in the trace is owned by none
-    owners = innermost(spans, [calls.get(c, -1) for _a, _b, c in clipped])
-    for (a, b, _c), sid in zip(clipped, owners):
+    owners = innermost(spans, [calls.get(c, -1) for _a, _b, c, _n
+                               in clipped])
+    for (a, b, c, _n), sid in zip(clipped, owners):
         device[sid] += (b - a) / 1e9
+        if c in nbytes:
+            copied[sid] += nbytes[c]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
     return {"window_s": (hi - lo) / 1e9, "busy_s": busy / 1e9,
-            "idle_s": dict(idle), "device_s": dict(device)}
+            "kernel_s": dict(by_name),
+            "device_ops": [[n, s] for n, s in ranked[:top]],
+            "idle_s": dict(idle), "device_s": dict(device),
+            "copy_bytes": dict(copied)}
 
 
 # ---------------------------------------------------------------------------
@@ -266,26 +317,34 @@ def index_ms_per_miss(ctx: dict) -> Optional[float]:
                      if s.name == "index.resolve") / misses
 
 
-def k5_program_bytes(ctx: dict) -> Optional[int]:
-    """The bytes K5's inputs need, from the program's counters, counted
-    as ``tracing.K5Recorder.needed_bytes`` counts them."""
+def k5_input_bytes(ctx: dict) -> Optional[int]:
+    """The bytes K5's hop reads in the window, each once, from the
+    program's counters: every row's prefix up to its depth
+    (``k5.prefix_bytes``), its member rank and its ``begin`` and ``end``
+    entries (int32 each), one ``dst`` entry a candidate edge (int32),
+    and a member of a dispatch its target, depth and ``wantc`` (int32
+    each) and its row of the member table (five int64)."""
     got = _window(ctx)
     if not _dispatches(got):
         return None
     c = got.counters
-    return (c.get("k5.prefix_bytes", 0) + 8 * c.get("k5.rows", 0)
-            + 8 * c.get("k5.candidate_edges", 0)
-            + 24 * c.get("k5.members", 0))
+    return (c.get("k5.prefix_bytes", 0) + 12 * c.get("k5.rows", 0)
+            + 4 * c.get("k5.candidate_edges", 0)
+            + MEMBER_BYTES * c.get("k5.members", 0))
 
 
-# name -> (unit, reader)
-METRICS = {
-    "k5_device_ms_per_dispatch.batch": ("ms", k5_device_ms_per_dispatch),
-    "fused_rows_per_dispatch.batch": ("rows", fused_rows_per_dispatch),
-    "fused_idle_ms_per_dispatch.batch": ("ms", fused_idle_ms_per_dispatch),
-    "serve_host_ms_per_query.batch": ("ms", serve_host_ms_per_query),
-    "index_ms_per_miss.setup": ("ms", index_ms_per_miss),
-}
+def k5_output_bytes(ctx: dict) -> Optional[int]:
+    """The bytes K5's hop wrote in the window, each once: what the
+    device copied back inside ``fused.readback`` spans, which is all
+    the hop writes: each dispatch's head (24 bytes a member), then
+    its emit and continue rows (``4 * k1`` bytes a child row at the
+    packed width ``k1``).  None without a device copy there."""
+    got, dev = _window(ctx), ctx.get("program_device")
+    if not _dispatches(got) or dev is None:
+        return None
+    ids = under(got.spans, READBACK_SPAN)
+    copied = sum(b for sid, b in dev["copy_bytes"].items() if sid in ids)
+    return copied if copied > 0 else None
 
 
 # ---------------------------------------------------------------------------
@@ -354,79 +413,11 @@ def recorder_cost(spans: int, dispatches: int, rows: int,
             "cost_s": cost_s}
 
 
-# ---------------------------------------------------------------------------
-# one traced run with the recorder on
-# ---------------------------------------------------------------------------
-
-class _Hooks:
-    """Installs, for one ``harness.run_cell``, the drains around the
-    window and the device read beside ``tracing.read_trace``."""
-
-    def __init__(self, rec) -> None:
-        self.rec = rec
-        self.ctx: dict = {}
-        self._undo: List[Tuple[object, str, object]] = []
-        for name in ("closed_loop", "open_loop"):
-            self._patch(loops, name, self._window_start(getattr(loops,
-                                                                name)))
-        read_trace = tracing.read_trace
-
-        def read(prof, spans, *a, **kw):
-            self.rec.disable()
-            got = self.rec.drain()
-            self.ctx["program"] = got
-            self.ctx["program_device"] = read_device(prof, got.spans)
-            return read_trace(prof, spans, *a, **kw)
-        self._patch(tracing, "read_trace", read)
-        needed = tracing.K5Recorder.needed_bytes
-
-        def needed_bytes(recorder):
-            self.ctx["k5_bytes"] = needed(recorder)
-            return self.ctx["k5_bytes"]
-        self._patch(tracing.K5Recorder, "needed_bytes", needed_bytes)
-
-    def _window_start(self, loop):
-        def hooked(*args, **kw):
-            if args[-1] > 0:  # the window, not the warm-up batch
-                self.ctx["program_setup"] = self.rec.drain()
-            return loop(*args, **kw)
-        return hooked
-
-    def _patch(self, owner, attr: str, value) -> None:
-        self._undo.append((owner, attr, getattr(owner, attr)))
-        setattr(owner, attr, value)
-
-    def remove(self) -> None:
-        for owner, attr, old in reversed(self._undo):
-            setattr(owner, attr, old)
-        self._undo.clear()
-
-
-def run_cell(name: str, seed: int, seconds: float, device: str = "cuda",
-             started: Optional[float] = None, spec: Optional[dict] = None,
-             base: Path = harness.HERE, log=None) -> dict:
-    """One ``--trace 1`` run of ``harness.run_cell`` with the program's
-    recorder on from the warm-up; its result line with
-    ``program_idle_gaps``, ``METRICS`` and a ``program`` block (the K5
-    bytes from the program's counters and from ``K5Recorder``, the
-    device seconds tied to program spans, the recorder's cost)."""
-    from repro_torch.core import trace as rec
-    rec.drain()
-    rec.enable()
-    hooks = _Hooks(rec)
-    try:
-        result = harness.run_cell(name, seed, seconds, True, device=device,
-                                  started=started, spec=spec, base=base,
-                                  log=log)
-    finally:
-        hooks.remove()
-        rec.disable()
-    ctx = hooks.ctx
-    for metric, (unit, read) in METRICS.items():
-        value = read(ctx)
-        if value is not None:
-            result["metrics"][metric] = {"value": value, "unit": unit}
-    result["program_idle_gaps"] = program_idle_gaps(ctx)
+def program_block(ctx: dict) -> dict:
+    """What the result line of a traced run carries beside its metrics:
+    the window's counters and self seconds by span name, the bytes K5's
+    hop read and wrote, the share of device seconds tied to program spans,
+    and the recorder's cost (its share of the window in ``cost_pct``)."""
     got = _window(ctx)
     counters = got.counters if got is not None else {}
     n = counters.get("k5.dispatches", 0)
@@ -437,38 +428,9 @@ def run_cell(name: str, seed: int, seconds: float, device: str = "cuda",
     window_s = (ctx.get("program_device") or {}).get("window_s")
     if window_s:
         cost["cost_pct"] = 100.0 * cost["cost_s"] / window_s
-    result["program"] = {"k5_bytes": k5_program_bytes(ctx),
-                         "recorder_k5_bytes": ctx.get("k5_bytes"),
-                         "device_tied_pct": device_tied_pct(ctx),
-                         "counters": counters,
-                         "self_s": self_seconds(got.spans) if got else {},
-                         "recorder": cost}
-    return result
-
-
-def main(argv=None) -> int:
-    started = time.perf_counter()
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--workload", required=True)
-    ap.add_argument("--seed", type=int, required=True)
-    ap.add_argument("--seconds", type=float, required=True)
-    args = ap.parse_args(argv)
-    cache = harness.REPO / ".bench_cache"
-    os.environ["TRITON_CACHE_DIR"] = str(cache / "triton")
-    os.environ["TORCH_EXTENSIONS_DIR"] = str(cache / "torch_extensions")
-    if not torch.cuda.is_available():
-        print("no CUDA device: this benchmark runs on the card only",
-              file=sys.stderr)
-        return 2
-    harness.use_checkout_program()
-
-    def log(msg: str) -> None:
-        print(msg, file=sys.stderr, flush=True)
-    result = run_cell(args.workload, args.seed, args.seconds,
-                      started=started, log=log)
-    print(json.dumps(result), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())
+    return {"counters": counters,
+            "k5_input_bytes": k5_input_bytes(ctx),
+            "k5_output_bytes": k5_output_bytes(ctx),
+            "device_tied_pct": device_tied_pct(ctx),
+            "self_s": self_seconds(got.spans) if got is not None else {},
+            "recorder": cost}

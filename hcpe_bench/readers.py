@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from . import stats
+from . import program_trace, stats
 
 
 def setup_s(ctx: dict) -> Optional[float]:
@@ -75,27 +75,31 @@ def join_plan_pct(ctx: dict) -> Optional[float]:
 def kernel_seconds(ctx: dict, part: str) -> float:
     """Device seconds in the window of the operations whose name holds
     ``part``."""
-    trace = ctx.get("trace") or {}
-    return sum(s for name, s in trace.get("kernel_s", {}).items()
+    dev = ctx.get("program_device") or {}
+    return sum(s for name, s in dev.get("kernel_s", {}).items()
                if part in name)
 
 
 def k5_roofline_pct(ctx: dict) -> Optional[float]:
-    """K5's least time over its device time: the bytes its inputs need
-    (``tracing.K5Recorder.needed_bytes``) at the card's HBM rate, over
-    the summed time of its kernel in the trace."""
-    nbytes = ctx.get("k5_bytes")
+    """K5's hop's least time over its device time: the bytes it reads
+    and writes, each once (``program_trace.k5_input_bytes``, from the
+    program's counters, and ``k5_output_bytes``, its head and child
+    rows as the device copied them back), at the card's HBM rate, over
+    the summed time of the operations named ``frontier_fused`` (on the
+    card the hop's count and write kernels)."""
+    nin = program_trace.k5_input_bytes(ctx)
+    nout = program_trace.k5_output_bytes(ctx)
     peaks = ctx.get("peaks")
     device_s = kernel_seconds(ctx, "frontier_fused")
-    if not nbytes or not peaks or device_s <= 0:
+    if not nin or not nout or not peaks or device_s <= 0:
         return None
-    return 100.0 * nbytes / peaks["hbm_bytes_per_s"] / device_s
+    return 100.0 * (nin + nout) / peaks["hbm_bytes_per_s"] / device_s
 
 
 def device_idle_pct(ctx: dict) -> Optional[float]:
     """The share of the traced window in which no device operation
     ran."""
-    trace = ctx.get("trace")
-    if not trace or trace["window_s"] <= 0 or trace["busy_s"] <= 0:
+    dev = ctx.get("program_device")
+    if not dev or dev["window_s"] <= 0 or dev["busy_s"] <= 0:
         return None
-    return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
+    return 100.0 * (1.0 - dev["busy_s"] / dev["window_s"])

@@ -180,3 +180,6 @@ def test_small_cells_on_the_card(tiny, cuda_device):
                                   spec=spec, base=base)
         assert result["correct"], (cell, result["checks"])
         assert result["device"]["busy_s"] > 0
+        # on the card every per-layer metric of the cell is read
+        assert set(result["metrics"]) == {
+            m["name"] for m in spec["per_layer"] if cell in m["workloads"]}

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 
 from hcpe_bench import harness, loops, readers, stats
+from repro_torch.core import trace
 
 HERE = Path(__file__).resolve().parent
 
@@ -52,9 +53,13 @@ def test_readers_over_a_window():
            "batches": [{"hits": 3, "misses": 1, "distinct": 2,
                         "optimize_s": 0.002, "enumerate_s": 0.01,
                         "plans": {"dfs": 1, "join": 1}}],
-           "trace": {"window_s": 2.0, "busy_s": 0.5,
-                     "kernel_s": {"frontier_fused_kernel": 0.001}},
-           "k5_bytes": 3.35e6, "peaks": {"hbm_bytes_per_s": 3.35e12}}
+           "program": trace.Trace(
+               [trace.Span("fused.readback", 0, 10, 1, 0, 0, None)],
+               {"k5.dispatches": 1, "k5.prefix_bytes": 3_000_000}),
+           "program_device": {"window_s": 2.0, "busy_s": 0.5,
+                              "kernel_s": {"frontier_fused_kernel": 0.001},
+                              "copy_bytes": {1: 350_000}},
+           "peaks": {"hbm_bytes_per_s": 3.35e12}}
     assert readers.queries_per_s(ctx) == 5.0
     assert readers.cache_hit_pct(ctx) == 75.0
     assert readers.per_distinct_ms(ctx, "enumerate_s") == pytest.approx(5.0)
